@@ -1,0 +1,201 @@
+"""Warm inference engine with recursive midpoint bisection (JAX
+``infer/engine.py``).
+
+uint8 NHWC frame pairs go in and come out, as in the JAX engine. Inside:
+normalize in the compute dtype, edge-pad to ``cfg.pad_multiple``, the model
+in NCHW (whose full-resolution refinement head is the ``refine_head`` CUDA
+kernel on the card), crop, round to uint8. PyTorch runs eagerly, so the
+JAX engine's per-shape compile cache becomes a cache of pair functions.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import List, Mapping, Optional
+
+import numpy as np
+import torch
+
+from ..config import ModelConfig
+from ..models import build_model
+from ..models.bridge import flax_to_state_dict
+from ..models.unet import FrameInterpolationUNet, fold_batchnorm
+from ..ops.image import denormalize_to_uint8, normalize_uint8
+from ..ops.resize import crop_to, pad_to_multiple
+
+
+def resolve_device(device=None) -> torch.device:
+    """``device``, or the CUDA card when none is given. Nothing falls back
+    to the CPU: without a card the caller must ask for ``"cpu"``."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device='cpu' to run the "
+                           "port on the CPU")
+    return torch.device("cuda")
+
+
+def _bisect(fwd, model, x1, x2, depth: int) -> List[torch.Tensor]:
+    """All 2**depth - 1 intermediates between x1 and x2, in time order."""
+    if depth == 0:
+        return []
+    mid = fwd(model, x1, x2)
+    return (_bisect(fwd, model, x1, mid, depth - 1) + [mid] +
+            _bisect(fwd, model, mid, x2, depth - 1))
+
+
+def _init_weights(model: torch.nn.Module, generator: torch.Generator) -> None:
+    """Flax's default init drawn from ``generator``: LeCun-normal conv
+    kernels (normal truncated at 2 sigma, rescaled to variance 1/fan_in),
+    zero biases, BatchNorm scale 1, bias 0, mean 0, var 1."""
+    for m in model.modules():
+        if isinstance(m, (torch.nn.Conv2d, torch.nn.ConvTranspose2d)):
+            w = m.weight
+            fan_in = w[0].numel() if isinstance(m, torch.nn.Conv2d) \
+                else w.shape[0] * w[0, 0].numel()
+            std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+            torch.nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std,
+                                        generator=generator)
+            if m.bias is not None:
+                torch.nn.init.zeros_(m.bias)
+        elif isinstance(m, torch.nn.BatchNorm2d):
+            m.reset_parameters()
+
+
+class InterpolationEngine:
+    """Load-once, serve-forever interpolation engine.
+
+    ``fold=True`` (default) folds inference-mode BatchNorm into the conv
+    weights (``models.unet.fold_batchnorm``). ``device=None`` means the
+    CUDA card and raises without one.
+    """
+
+    def __init__(self, model: FrameInterpolationUNet,
+                 state: Optional[Mapping[str, torch.Tensor]] = None,
+                 compute_dtype=torch.bfloat16, fold: bool = True,
+                 device=None):
+        self.device = resolve_device(device)
+        cfg = model.cfg
+        state = dict(state if state is not None else model.state_dict())
+        if fold and not model.folded:
+            state = fold_batchnorm(state)
+            model = build_model(cfg, compute_dtype, folded=True)
+        elif model.compute_dtype != compute_dtype:
+            model = build_model(cfg, compute_dtype, folded=model.folded)
+        model.load_state_dict(state)
+        self.model = model.to(self.device).eval().requires_grad_(False)
+        self.cfg: ModelConfig = cfg
+        self.compute_dtype = compute_dtype
+        # Cap on the batch one dispatch sees (None = off); larger batches
+        # run as sequential chunks, concatenated on the device.
+        self.max_dispatch_batch: Optional[int] = None
+        self._fn_cache: dict = {}
+
+    @property
+    def variables(self) -> FrameInterpolationUNet:
+        """The module holding the weights: pair functions take it first,
+        where the JAX engine's take the variables tree."""
+        return self.model
+
+    def _put(self, arr: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
+
+    # -- factories ---------------------------------------------------------
+
+    @classmethod
+    def random_init(cls, cfg: Optional[ModelConfig] = None, seed: int = 0,
+                    compute_dtype=torch.bfloat16, fold: bool = True,
+                    device=None) -> "InterpolationEngine":
+        """Engine with random weights from ``seed`` (plumbing and speed
+        runs). The numbers differ from JAX's for the same seed."""
+        cfg = cfg or ModelConfig()
+        model = build_model(cfg, compute_dtype)
+        _init_weights(model, torch.Generator().manual_seed(seed))
+        return cls(model, None, compute_dtype, fold=fold, device=device)
+
+    @classmethod
+    def from_flax_variables(cls, variables: Mapping, cfg: ModelConfig,
+                            compute_dtype=torch.bfloat16, fold: bool = True,
+                            device=None) -> "InterpolationEngine":
+        """Engine over a Flax variables tree given as numpy arrays
+        (``models/bridge.py``)."""
+        folded = not variables.get("batch_stats")
+        model = build_model(cfg, compute_dtype, folded=folded)
+        return cls(model, flax_to_state_dict(variables), compute_dtype,
+                   fold=fold, device=device)
+
+    # -- the pair function --------------------------------------------------
+
+    def _forward(self, model, x1, x2):
+        return model(x1, x2).to(self.compute_dtype)
+
+    def _pair_fn(self, n_out: int, depth: int):
+        key = ("pair", n_out, depth)
+        if key not in self._fn_cache:
+            self._fn_cache[key] = self._chunk_batches(
+                self._build_pair_fn(n_out, depth))
+        return self._fn_cache[key]
+
+    def _chunk_batches(self, fn):
+        """Honour ``max_dispatch_batch``: split a larger batch into
+        sequential chunks and concatenate the results."""
+
+        def wrapper(model, f1_u8, f2_u8):
+            limit = self.max_dispatch_batch
+            b = int(f1_u8.shape[0])
+            if not limit or b <= limit:
+                return fn(model, f1_u8, f2_u8)
+            return torch.cat([fn(model, f1_u8[i:i + limit],
+                                 f2_u8[i:i + limit])
+                              for i in range(0, b, limit)], 0)
+
+        return wrapper
+
+    def _build_pair_fn(self, n_out: int, depth: int):
+        """uint8 [B,H,W,C] pair -> uint8 [B, n_out, H, W, C]: ``n_out`` of
+        the 2**depth - 1 dyadic intermediates, at the times nearest to
+        i/(n_out+1) (exact when n_out+1 is a power of two)."""
+        total = 2 ** depth - 1
+        if n_out == total:
+            idx = list(range(total))
+        else:
+            idx = [min(total - 1, round((i + 1) * (total + 1) / (n_out + 1)) - 1)
+                   for i in range(n_out)]
+        cdt, mult = self.compute_dtype, self.cfg.pad_multiple
+
+        def prep(f_u8):
+            return pad_to_multiple(
+                normalize_uint8(f_u8.permute(0, 3, 1, 2), cdt), mult)
+
+        def fn(model, f1_u8, f2_u8):
+            with torch.inference_mode():
+                x1, hw = prep(f1_u8)
+                x2, _ = prep(f2_u8)
+                mids = _bisect(self._forward, model, x1, x2, depth)
+                out = torch.stack([crop_to(mids[i], hw) for i in idx], 1)
+                return denormalize_to_uint8(out).permute(0, 1, 3, 4, 2)
+
+        return fn
+
+    # -- public API ---------------------------------------------------------
+
+    def interpolate_pair(self, f1: np.ndarray, f2: np.ndarray) -> np.ndarray:
+        """Midpoint between two HWC uint8 frames -> HWC uint8."""
+        return self.interpolate_batch(f1[None], f2[None])[0]
+
+    def interpolate_batch(self, f1: np.ndarray, f2: np.ndarray) -> np.ndarray:
+        """Batched midpoints: [B,H,W,C] u8 x2 -> [B,H,W,C] u8."""
+        out = self._pair_fn(1, 1)(self.model, self._put(f1), self._put(f2))
+        return out[:, 0].cpu().numpy()
+
+    def generate_intermediate_frames(self, f1: np.ndarray, f2: np.ndarray,
+                                     num: int) -> List[np.ndarray]:
+        """``num`` in-between HWC uint8 frames in time order, by recursive
+        midpoint bisection."""
+        if num < 1:
+            raise ValueError("num must be >= 1")
+        depth = max(1, math.ceil(math.log2(num + 1)))
+        out = self._pair_fn(num, depth)(self.model, self._put(f1[None]),
+                                        self._put(f2[None]))
+        out = out[0].cpu().numpy()
+        return [out[i] for i in range(num)]

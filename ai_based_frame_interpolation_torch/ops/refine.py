@@ -1,0 +1,136 @@
+"""The full-resolution refinement head: CUDA kernel and plain version.
+
+Counterpart of the JAX package's ``ops/pallas/refine_fused.py``. With
+``z = concat(pred, *planes)`` on the channel axis::
+
+    z1  = relu(conv3x3(z  -> w) + b1)      # bf16, f32 accumulation
+    z2  = relu(conv3x3(z1 -> w) + b2)      # or depthwise 3x3 + pointwise 1x1
+    out = pred + conv1x1_f32(z2 -> C)      # f32, then the compute dtype
+
+:func:`refine_head` launches ``csrc/refine_head.cu`` for CUDA tensors and
+runs :func:`refine_head_reference` for CPU tensors. Both take the JAX
+function's NHWC layout.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Sequence
+
+import torch
+import torch.nn.functional as F
+
+from . import _build
+
+
+def _conv(x, p, dtype, padding=0, groups=1):
+    """Conv in ``dtype``, bias added after it (Flax ``Conv(dtype=...)``)."""
+    y = F.conv2d(x, p["weight"].to(dtype), None, padding=padding,
+                 groups=groups)
+    return y + p["bias"].to(dtype).view(1, -1, 1, 1)
+
+
+def refine_head_reference(y_full: torch.Tensor, planes: Sequence[torch.Tensor],
+                          params: dict, compute_dtype=torch.bfloat16
+                          ) -> torch.Tensor:
+    """The head in plain PyTorch with the Flax head's rounding points.
+
+    y_full : [B,H,W,C] pre-refine prediction (residual base, first plane)
+    planes : [B,H,W,C] tensors concatenated after it (unet: (f1, f2))
+    params : ``{"refine1", "refine2", "refine_out"}`` (or ``refine2_dw`` and
+        ``refine2_pw`` for the depthwise head), each ``{"weight", "bias"}``
+        in PyTorch's OIHW layout
+    returns: [B,H,W,C] in ``compute_dtype``
+    """
+    cdt = compute_dtype
+    pred = y_full.permute(0, 3, 1, 2).float()
+    z = torch.cat([pred.to(cdt)] +
+                  [p.permute(0, 3, 1, 2).to(cdt) for p in planes], 1)
+    z = F.relu(_conv(z, params["refine1"], cdt, padding=1))
+    if "refine2" in params:
+        z = F.relu(_conv(z, params["refine2"], cdt, padding=1))
+    else:
+        z = _conv(z, params["refine2_dw"], cdt, padding=1, groups=z.shape[1])
+        z = F.relu(_conv(z, params["refine2_pw"], cdt))
+    out = params["refine_out"]
+    delta = F.conv2d(z.float(), out["weight"].float(), out["bias"].float())
+    return (pred + delta).to(cdt).permute(0, 2, 3, 1)
+
+
+_WIDTH = 64          # the kernel's head width (the production head)
+_MAX_PLANES = 4      # planes besides the prediction (flow: g0, g1, f1, f2)
+
+
+def _lib():
+    lib = _build.load("refine_head")
+    fn = lib.refine_head_bf16
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 +
+                       [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 +
+                       [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def refine_head(y_full: torch.Tensor, planes: Sequence[torch.Tensor],
+                params: dict, compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """The refinement head: the plain version for CPU tensors, the CUDA
+    kernel for CUDA tensors (which raises on what the kernel does not
+    take). Arguments as :func:`refine_head_reference`.
+    ``refine_head.launches`` counts kernel launches."""
+    if y_full.device.type == "cpu":
+        return refine_head_reference(y_full, planes, params, compute_dtype)
+    if y_full.device.type != "cuda":
+        raise ValueError(f"refine_head: unsupported device {y_full.device}")
+    if "refine2" not in params:
+        raise NotImplementedError(
+            "the depthwise refinement head has no CUDA kernel yet "
+            "(ROADMAP Queue B item 1, depthwise variant)")
+    if compute_dtype != torch.bfloat16:
+        raise ValueError("the refine_head kernel computes in bf16; got "
+                         f"compute_dtype={compute_dtype}")
+    b, h, w, c = y_full.shape
+    nplanes = (1 + len(planes)) * c
+    w1 = params["refine1"]["weight"]
+    width = int(w1.shape[0])
+    if c not in (1, 3) or not 1 <= len(planes) <= _MAX_PLANES:
+        raise ValueError(f"refine_head kernel: C={c} with {len(planes)} "
+                         "planes is not supported (C in {1, 3}, 1-4 planes)")
+    if width != _WIDTH or tuple(w1.shape) != (width, nplanes, 3, 3):
+        raise ValueError(f"refine_head kernel: refine1 weight {tuple(w1.shape)}"
+                         f" does not match width {_WIDTH} and {nplanes} planes")
+    for p in planes:
+        if tuple(p.shape) != (b, h, w, c) or p.device != y_full.device:
+            raise ValueError("refine_head: every plane must match y_full's "
+                             "shape and device")
+    bf16 = torch.bfloat16
+    dev = y_full.device
+    pred = y_full.to(torch.float32).contiguous()
+    extra = [p.to(bf16).contiguous() for p in planes]
+    # w1 as (out, tap, plane), w2 as (tap, out, in): the kernel's layouts
+    w1k = w1.permute(0, 2, 3, 1).reshape(width, 9 * nplanes).to(bf16).contiguous()
+    b1k = params["refine1"]["bias"].to(bf16).contiguous()
+    w2k = (params["refine2"]["weight"].permute(2, 3, 0, 1)
+           .reshape(9, width, width).to(bf16).contiguous())
+    b2k = params["refine2"]["bias"].to(bf16).contiguous()
+    w3k = (params["refine_out"]["weight"].reshape(c, width).t()
+           .to(torch.float32).contiguous())
+    b3k = params["refine_out"]["bias"].to(torch.float32).contiguous()
+    for t in (w1k, b1k, w2k, b2k, w3k, b3k):
+        if t.device != dev:
+            raise ValueError("refine_head: weights must be on y_full's device")
+    out = torch.empty((b, h, w, c), dtype=bf16, device=dev)
+    ptrs = [p.data_ptr() for p in extra] + [None] * (_MAX_PLANES - len(extra))
+    fn = _lib()
+    with torch.cuda.device(dev):
+        err = fn(pred.data_ptr(), *ptrs, nplanes, c, w1k.data_ptr(),
+                 b1k.data_ptr(), w2k.data_ptr(), b2k.data_ptr(),
+                 w3k.data_ptr(), b3k.data_ptr(), out.data_ptr(), b, h, w,
+                 width, torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f"refine_head kernel launch failed: CUDA error {err}")
+    refine_head.launches += 1
+    return out
+
+
+refine_head.launches = 0

@@ -1,0 +1,127 @@
+"""The port's plain refinement head vs the JAX package's.
+
+``refine_head_reference`` is held against the Pallas kernel
+``refine_head_fused`` in interpret mode (as ``tests/test_refine_fused.py``
+runs it on the CPU) and against the Flax head inside the model. Weights and
+inputs come from numpy. Tolerances:
+
+- f32: 1e-4, the same f32 sums in another order;
+- bf16: both sides round each conv to bf16 before and after its bias, but
+  the f32 sums run in another order, so a sum near a rounding boundary can
+  land one bf16 ulp apart (0.0078 near 1) and carry into the next conv.
+  Outputs agree within 2 ulp at |x| < 4 (atol 0.032) and bit for bit on
+  at least 98% of the values.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ai_based_frame_interpolation_torch.models.bridge import flax_to_state_dict
+from ai_based_frame_interpolation_torch.ops.refine import (
+    refine_head, refine_head_reference)
+from ai_based_frame_interpolation_tpu.config import ModelConfig as JConfig
+from ai_based_frame_interpolation_tpu.models import build_model as j_build
+from ai_based_frame_interpolation_tpu.ops.pallas.refine_fused import (
+    refine_head_fused)
+
+CPU = jax.devices("cpu")[0]
+
+
+def _head_params(nplanes, c, width, seed=0):
+    """Flax-layout head params (HWIO kernels) drawn from numpy."""
+    gen = np.random.default_rng(seed)
+
+    def conv(k, cin, cout):
+        return {"kernel": (gen.standard_normal((k, k, cin, cout))
+                           / np.sqrt(k * k * cin)).astype(np.float32),
+                "bias": (0.1 * gen.standard_normal(cout)).astype(np.float32)}
+
+    return {"refine1": conv(3, nplanes, width),
+            "refine2": conv(3, width, width),
+            "refine_out": conv(1, width, c)}
+
+
+def _torch_params(flax_params):
+    state = flax_to_state_dict({"params": flax_params})
+    return {n: {"weight": state[f"{n}.weight"], "bias": state[f"{n}.bias"]}
+            for n in flax_params}
+
+
+def _inputs(b, h, w, c, nextra, seed=1):
+    gen = np.random.default_rng(seed)
+    y = gen.uniform(-1, 1, (b, h, w, c)).astype(np.float32)
+    planes = [gen.uniform(-1, 1, (b, h, w, c)).astype(np.float32)
+              for _ in range(nextra)]
+    return y, planes
+
+
+def _bf16_close(got, want):
+    np.testing.assert_allclose(got, want, rtol=0, atol=0.032)
+    assert float((got == want).mean()) >= 0.98
+
+
+# (batch, height, width, channels, planes besides the prediction): heights
+# 32 (a multiple of 16) and 24 (not); 3, 5 and 9 input planes
+SHAPES = [(2, 24, 32, 1, 2), (1, 32, 32, 1, 4), (1, 24, 32, 3, 2)]
+
+
+@pytest.mark.parametrize("b,h,w,c,nextra", SHAPES)
+def test_reference_matches_pallas_interpret(b, h, w, c, nextra):
+    nplanes = (1 + nextra) * c
+    fp = _head_params(nplanes, c, width=16)
+    y, planes = _inputs(b, h, w, c, nextra)
+    with jax.default_device(CPU):
+        want = np.asarray(refine_head_fused(
+            jnp.asarray(y), tuple(jnp.asarray(p, jnp.bfloat16) for p in planes),
+            fp["refine1"], fp["refine2"], fp["refine_out"],
+            interpret=True), np.float32)
+    got = refine_head_reference(
+        torch.from_numpy(y), [torch.from_numpy(p) for p in planes],
+        _torch_params(fp), torch.bfloat16)
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == (b, h, w, c)
+    _bf16_close(got.float().numpy(), want)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_reference_matches_flax_head(dtype):
+    cfg = JConfig(base_width=4, depth=2, space_to_depth=2, residual=True,
+                  refine_width=8)
+    jdt = getattr(jnp, dtype)
+    model = j_build(cfg, jdt)
+    b, h, w = 2, 24, 32
+    _, (f1, f2) = _inputs(b, h, w, 1, 2, seed=3)
+    shapes = jax.eval_shape(lambda a: model.init(jax.random.key(0), a, a,
+                                                 train=False),
+                            jax.ShapeDtypeStruct(f1.shape, jnp.float32))
+    gen = np.random.default_rng(4)
+    variables = jax.tree.map(
+        lambda a: (0.3 * gen.standard_normal(a.shape) + (
+            1.0 if len(a.shape) == 1 else 0.0)).astype(np.float32), shapes)
+    params = variables["params"]
+    full, pre = jax.jit(lambda v, a, c: (
+        model.apply(v, a, c, train=False).astype(jnp.float32),
+        model.apply(v, a, c, train=False, skip_refine=True)))(
+        variables, f1, f2)
+    full, pre = np.asarray(full), np.array(pre, np.float32)
+    head = {n: params[n] for n in ("refine1", "refine2", "refine_out")}
+    got = refine_head_reference(
+        torch.from_numpy(pre), [torch.from_numpy(f1), torch.from_numpy(f2)],
+        _torch_params(jax.tree.map(np.asarray, head)),
+        getattr(torch, dtype)).float().numpy()
+    if dtype == "float32":
+        np.testing.assert_allclose(got, full, rtol=0, atol=1e-4)
+    else:
+        _bf16_close(got, full)
+
+
+def test_cpu_wrapper_runs_the_plain_version_without_launching():
+    fp = _head_params(3, 1, width=64)
+    y, planes = _inputs(1, 16, 16, 1, 2)
+    before = refine_head.launches
+    args = (torch.from_numpy(y), [torch.from_numpy(p) for p in planes],
+            _torch_params(fp), torch.bfloat16)
+    assert torch.equal(refine_head(*args), refine_head_reference(*args))
+    assert refine_head.launches == before
