@@ -3,51 +3,63 @@
 // Replaces ops/pallas/refine_fused.py:refine_head_fused of the JAX package
 // (its Pallas body _kernel): with z = concat(pred, *planes) per pixel,
 //
-//   z1  = relu(bf16(bf16(conv3x3(z,  nplanes -> 64)) + b1))
-//   z2  = relu(bf16(bf16(conv3x3(z1, 64 -> 64))      + b2))
-//   out = bf16(pred + (conv1x1_f32(z2, 64 -> C) + b3))
+//   z1  = relu(bf16(bf16(conv3x3(z,  nplanes -> WD)) + b1))
+//   z2  = relu(bf16(bf16(conv3x3(z1, WD -> WD))      + b2))
+//   out = bf16(pred + (conv1x1_f32(z2, WD -> C) + b3))
 //
 // with SAME zero padding, bf16 operands, f32 accumulation, the f32 out conv
 // over the bf16 z2 and the f32 residual: the numerics of the Flax head
-// (models/unet.py, refine branch), not those of the TPU kernel's compiled
-// fast path, which rounds the out-conv weights to bf16.
+// (models/unet.py, refine branch; models/flow.py, refine), not those of
+// the TPU kernel's compiled fast path, which rounds the out-conv weights to
+// bf16. The head width WD is a template parameter with two instances: 64
+// (the U-Net production head, 3 or 9 planes) and 16 (the flow production
+// head, 5 or 15 planes).
 //
-// What bounds it on the H100: at 1088x1920 with 3 planes and C=1 the head
-// does 3,456 + 73,728 + 128 = 77,312 FLOP per pixel, 161.5 GFLOP per
-// frame, or 0.163 ms at the 989 TFLOP/s bf16 tensor-core peak. Its own
+// What bounds it on the H100: at 1088x1920 with 3 planes, C=1 and WD=64
+// the head does 3,456 + 73,728 + 128 = 77,312 FLOP per pixel, 161.5 GFLOP
+// per frame, or 0.163 ms at the 989 TFLOP/s bf16 tensor-core peak. Its own
 // device-memory traffic is only the f32 prediction, the two bf16 frames and
 // the bf16 output, 10 bytes per pixel or 20.9 MB per frame (6.2 us at
 // 3.35 TB/s): the head is compute-bound. Left unfused, each of its two
-// 64-channel bf16 activations would be 267 MB per frame.
+// 64-channel bf16 activations would be 267 MB per frame. At WD=16 with 5
+// planes (the flow head) it is 6,080 FLOP per pixel, 12.7 GFLOP or 12.8 us
+// per frame, against 18 bytes per pixel (f32 prediction and warped frames,
+// bf16 frames and output; 37.6 MB, 11.2 us): about as much traffic as
+// arithmetic.
 //
 // What the design does about it:
 // - Both activations stay on chip, as in the TPU kernel. A block works on
 //   16x16 output tiles: it loads the 20x20xnplanes input halo into shared
-//   memory (zero outside the image), computes the 18x18x64 conv1
+//   memory (zero outside the image), computes the 18x18xWD conv1
 //   activation into shared memory as bf16 (zero outside the image, which
 //   is conv2's SAME padding), then conv2, the bias/ReLU, the 1x1 out conv
 //   and the residual for the tile's 256 pixels. Only the planes are read
 //   and only the output is written.
 // - Both 3x3 convs run on the tensor cores as implicit GEMMs with
 //   mma.sync.m16n8k16 (bf16 in, f32 accumulate). conv2: M = 256 pixels,
-//   N = 64, K = 9 taps x 64 channels; each warp owns two tile rows (two
-//   m16 tiles) and all 64 output channels, so the out conv reduces within
+//   N = WD, K = 9 taps x WD channels; each warp owns two tile rows (two
+//   m16 tiles) and all WD output channels, so the out conv reduces within
 //   the warp (quad shuffles). A and B fragments come from shared memory by
-//   ldmatrix; rows are padded to 72 bf16 (144 bytes) so the eight rows of
-//   each 8x8 matrix fall in distinct banks. conv1: M = 324 window pixels,
+//   ldmatrix; rows are padded to WD + 8 bf16 (144 bytes at WD=64, 48 at
+//   WD=16) so the eight rows of each 8x8 matrix fall in distinct banks
+//   (word offsets 4i, resp. 12i mod 32). conv1: M = 324 window pixels,
 //   K = 9 x nplanes padded to 16, A gathered through a tap offset table.
-// - Blocks are persistent (one per SM at this shared-memory size) and load
-//   the 64x64x9 conv2 and the conv1 weights into shared memory once, not
-//   once per tile.
+// - Blocks are persistent and load the WDxWDx9 conv2 and the conv1
+//   weights into shared memory once, not once per tile. At WD=64 one
+//   block fits an SM (137 KB of shared memory at 3 planes); at WD=16 a block
+//   needs about 28 KB, so the kernel is compiled for four blocks per SM
+//   (at most 64 registers a thread) and the occupancy query sizes the grid.
 // - Still far from the bound: shared-memory bandwidth feeds mma.sync at
 //   about 0.9 MB of fragment reads per tile, and the phases of a tile do
 //   not overlap. wgmma and TMA are the next step.
 //
-// Layouts: pred [B,H,W,C] f32; planes [B,H,W,C] bf16 (up to 4); concat
-// channel p is (k = p / C, c = p % C) with k = 0 the prediction.
-// w1 [64][9*nplanes] bf16 (out, then tap-major, plane-minor), w2 [9][64][64]
-// bf16 (tap, out, in), b1/b2 [64] bf16, w3 [64][C] f32, b3 [C] f32.
-// Output [B,H,W,C] bf16.
+// Layouts: pred [B,H,W,C] f32; planes [B,H,W,C] (up to 4), each bf16, or
+// f32 where its bit in plane_f32 is set (the flow sampler's f32 warped
+// frames go in as they are and round to bf16 in the halo load, as a cast
+// would); concat channel p is (k = p / C, c = p % C) with k = 0 the
+// prediction. w1 [WD][9*nplanes] bf16 (out, then tap-major, plane-minor),
+// w2 [9][WD][WD] bf16 (tap, out, in), b1/b2 [WD] bf16, w3 [WD][C] f32,
+// b3 [C] f32. Output [B,H,W,C] bf16.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -57,13 +69,11 @@ namespace {
 
 constexpr int TH = 16;                 // output tile rows
 constexpr int TW = 16;                 // output tile columns (one m16 tile)
-constexpr int WD = 64;                 // head width
 constexpr int HALO_W = TW + 4;         // input window (two stacked 3x3)
 constexpr int HALO_N = (TH + 4) * HALO_W;
 constexpr int Z1_W = TW + 2;           // conv1 window (one 3x3 halo)
 constexpr int Z1_N = (TH + 2) * Z1_W;  // 324 pixels
 constexpr int Z1_MT = (Z1_N + 15) / 16;
-constexpr int RS = WD + 8;             // padded row stride (bf16) of z1/w2
 constexpr int WARPS = 8;
 constexpr int THREADS = WARPS * 32;
 constexpr int MAX_EXTRA = 4;           // planes besides the prediction
@@ -73,7 +83,8 @@ constexpr int MAX_NPLANES = (1 + MAX_EXTRA) * MAX_C;
 static_assert(TH == 2 * WARPS, "each warp owns two tile rows");
 
 struct Planes {
-  const __nv_bfloat16* p[MAX_EXTRA];
+  const void* p[MAX_EXTRA];
+  int f32;                             // bit k - 1: plane k is f32
 };
 
 __device__ __forceinline__ float round_bf16(float x) {
@@ -121,13 +132,18 @@ __host__ __device__ inline int k1_padded(int nplanes) {
   return (9 * nplanes + 15) / 16 * 16;
 }
 
+template <int WD>
 __host__ __device__ inline size_t smem_bytes(int nplanes) {
+  constexpr int RS = WD + 8;           // padded row stride (bf16) of z1/w2
   const int k1p = k1_padded(nplanes);
   return sizeof(__nv_bfloat16) * (9 * WD * RS + Z1_N * RS + WD * (k1p + 8)) +
          sizeof(uint16_t) * nplanes * HALO_N + sizeof(int) * k1p;
 }
 
-__global__ void __launch_bounds__(THREADS, 1)
+// compiled for 1 block per SM at WD=64 (shared memory allows no more) and
+// 4 at WD=16, which caps the instance at 64 registers a thread
+template <int WD>
+__global__ void __launch_bounds__(THREADS, WD == 64 ? 1 : 4)
 refine_head_kernel(const float* __restrict__ pred, Planes planes,
                    int nplanes, int C,
                    const __nv_bfloat16* __restrict__ w1,
@@ -137,6 +153,8 @@ refine_head_kernel(const float* __restrict__ pred, Planes planes,
                    const float* __restrict__ w3,
                    const float* __restrict__ b3,
                    __nv_bfloat16* __restrict__ out, int B, int H, int W) {
+  static_assert(WD % 16 == 0, "two n8 tiles per ldmatrix, k16 steps");
+  constexpr int RS = WD + 8;           // padded row stride (bf16) of z1/w2
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int k1 = 9 * nplanes;
   const int k1p = k1_padded(nplanes);
@@ -154,7 +172,7 @@ refine_head_kernel(const float* __restrict__ pred, Planes planes,
   const int g = lane / 4;              // mma groupID
   const int t = lane % 4;              // mma thread in group
 
-  // weights, once per block: w2 rows of 64 in 16-byte chunks
+  // weights, once per block: w2 rows of WD in 16-byte chunks
   for (int idx = tid; idx < 9 * WD * (WD / 8); idx += THREADS) {
     const int row = idx / (WD / 8);
     const int ch = idx % (WD / 8);
@@ -198,7 +216,13 @@ refine_head_kernel(const float* __restrict__ pred, Planes planes,
         const int k = p / C;
         const size_t off =
             (img + static_cast<size_t>(gy) * W + gx) * C + (p - k * C);
-        v = k == 0 ? __float2bfloat16_rn(pred[off]) : planes.p[k - 1][off];
+        if (k == 0) {
+          v = __float2bfloat16_rn(pred[off]);
+        } else if ((planes.f32 >> (k - 1)) & 1) {
+          v = __float2bfloat16_rn(static_cast<const float*>(planes.p[k - 1])[off]);
+        } else {
+          v = static_cast<const __nv_bfloat16*>(planes.p[k - 1])[off];
+        }
       }
       s.in[idx] = __bfloat16_as_ushort(v);
     }
@@ -327,30 +351,14 @@ refine_head_kernel(const float* __restrict__ pred, Planes planes,
   }
 }
 
-}  // namespace
-
-// Returns 0 or a cudaError_t. Launches on `stream`, allocates nothing.
-extern "C" int refine_head_bf16(const void* pred, const void* plane0,
-                                const void* plane1, const void* plane2,
-                                const void* plane3, int nplanes, int C,
-                                const void* w1, const void* b1, const void* w2,
-                                const void* b2, const void* w3, const void* b3,
-                                void* out, int B, int H, int W, int width,
-                                void* stream) {
-  const int nextra = C > 0 ? nplanes / C - 1 : 0;
-  if (width != WD || C < 1 || C > MAX_C || nplanes % C != 0 || nextra < 1 ||
-      nextra > MAX_EXTRA || nplanes > MAX_NPLANES || B < 1 || H < 1 || W < 1) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  Planes planes;
-  const void* given[MAX_EXTRA] = {plane0, plane1, plane2, plane3};
-  for (int k = 0; k < MAX_EXTRA; ++k) {
-    planes.p[k] = static_cast<const __nv_bfloat16*>(given[k]);
-    if (k < nextra && given[k] == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const size_t smem = smem_bytes(nplanes);
+template <int WD>
+int launch(const float* pred, const Planes& planes, int nplanes, int C,
+           const void* w1, const void* b1, const void* w2, const void* b2,
+           const void* w3, const void* b3, void* out, int B, int H, int W,
+           cudaStream_t stream) {
+  const size_t smem = smem_bytes<WD>(nplanes);
   cudaError_t err = cudaFuncSetAttribute(
-      refine_head_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      refine_head_kernel<WD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   int device = 0, sms = 0, per_sm = 0;
@@ -360,7 +368,7 @@ extern "C" int refine_head_bf16(const void* pred, const void* plane0,
     return static_cast<int>(err);
   }
   if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, refine_head_kernel, THREADS, smem)) != cudaSuccess) {
+           &per_sm, refine_head_kernel<WD>, THREADS, smem)) != cudaSuccess) {
     return static_cast<int>(err);
   }
   if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
@@ -369,11 +377,43 @@ extern "C" int refine_head_bf16(const void* pred, const void* plane0,
   const int grid = static_cast<int>(ntiles < static_cast<long long>(sms) * per_sm
                                         ? ntiles
                                         : static_cast<long long>(sms) * per_sm);
-  refine_head_kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(pred), planes, nplanes, C,
+  refine_head_kernel<WD><<<grid, THREADS, smem, stream>>>(
+      pred, planes, nplanes, C,
       static_cast<const __nv_bfloat16*>(w1), static_cast<const __nv_bfloat16*>(b1),
       static_cast<const __nv_bfloat16*>(w2), static_cast<const __nv_bfloat16*>(b2),
       static_cast<const float*>(w3), static_cast<const float*>(b3),
       static_cast<__nv_bfloat16*>(out), B, H, W);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Returns 0 or a cudaError_t. Launches on `stream`, allocates nothing.
+// plane_f32: bit k set when plane k (0-based, after the prediction) is f32.
+extern "C" int refine_head_bf16(const void* pred, const void* plane0,
+                                const void* plane1, const void* plane2,
+                                const void* plane3, int plane_f32, int nplanes,
+                                int C, const void* w1, const void* b1,
+                                const void* w2, const void* b2, const void* w3,
+                                const void* b3, void* out, int B, int H, int W,
+                                int width, void* stream) {
+  const int nextra = C > 0 ? nplanes / C - 1 : 0;
+  if ((width != 64 && width != 16) || C < 1 || C > MAX_C || nplanes % C != 0 ||
+      nextra < 1 || nextra > MAX_EXTRA || nplanes > MAX_NPLANES || B < 1 ||
+      H < 1 || W < 1 || (plane_f32 >> nextra) != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  Planes planes;
+  planes.f32 = plane_f32;
+  const void* given[MAX_EXTRA] = {plane0, plane1, plane2, plane3};
+  for (int k = 0; k < MAX_EXTRA; ++k) {
+    planes.p[k] = given[k];
+    if (k < nextra && given[k] == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* p = static_cast<const float*>(pred);
+  if (width == 64) {
+    return launch<64>(p, planes, nplanes, C, w1, b1, w2, b2, w3, b3, out, B, H, W, st);
+  }
+  return launch<16>(p, planes, nplanes, C, w1, b1, w2, b2, w3, b3, out, B, H, W, st);
 }

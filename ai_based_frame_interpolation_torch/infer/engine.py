@@ -3,15 +3,17 @@
 
 uint8 NHWC frame pairs go in and come out, as in the JAX engine. Inside:
 normalize in the compute dtype, edge-pad to ``cfg.pad_multiple``, the model
-in NCHW (whose full-resolution refinement head is the ``refine_head`` CUDA
-kernel on the card), crop, round to uint8. PyTorch runs eagerly, so the
-JAX engine's per-shape compile cache becomes a cache of pair functions.
+in NCHW, crop, round to uint8. The U-Net family bisects; the flow family
+runs one motion pass and then samples each output time exactly, through
+the ``sample_fused`` and ``refine_head`` CUDA kernels on the card. PyTorch
+runs eagerly, so the JAX engine's per-shape compile cache becomes a cache
+of pair functions.
 """
 
 from __future__ import annotations
 
 import math
-from typing import List, Mapping, Optional
+from typing import List, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
@@ -19,7 +21,8 @@ import torch
 from ..config import ModelConfig
 from ..models import build_model
 from ..models.bridge import flax_to_state_dict
-from ..models.unet import FrameInterpolationUNet, fold_batchnorm
+from ..models.unet import fold_batchnorm
+from ..ops import warp_fused
 from ..ops.image import denormalize_to_uint8, normalize_uint8
 from ..ops.resize import crop_to, pad_to_multiple
 
@@ -67,10 +70,11 @@ class InterpolationEngine:
 
     ``fold=True`` (default) folds inference-mode BatchNorm into the conv
     weights (``models.unet.fold_batchnorm``). ``device=None`` means the
-    CUDA card and raises without one.
+    CUDA card and raises without one. ``model`` is a module of either
+    ported family (``models.build_model``).
     """
 
-    def __init__(self, model: FrameInterpolationUNet,
+    def __init__(self, model: torch.nn.Module,
                  state: Optional[Mapping[str, torch.Tensor]] = None,
                  compute_dtype=torch.bfloat16, fold: bool = True,
                  device=None):
@@ -84,6 +88,7 @@ class InterpolationEngine:
             model = build_model(cfg, compute_dtype, folded=model.folded)
         model.load_state_dict(state)
         self.model = model.to(self.device).eval().requires_grad_(False)
+        self.model.pack_head()          # the head kernel's weight layouts
         self.cfg: ModelConfig = cfg
         self.compute_dtype = compute_dtype
         # Cap on the batch one dispatch sees (None = off); larger batches
@@ -92,7 +97,7 @@ class InterpolationEngine:
         self._fn_cache: dict = {}
 
     @property
-    def variables(self) -> FrameInterpolationUNet:
+    def variables(self) -> torch.nn.Module:
         """The module holding the weights: pair functions take it first,
         where the JAX engine's take the variables tree."""
         return self.model
@@ -151,33 +156,117 @@ class InterpolationEngine:
 
         return wrapper
 
+    def _prep(self, f_u8: torch.Tensor):
+        """uint8 [B,H,W,C] -> (padded NCHW frames in the compute dtype,
+        the unpadded (H, W))."""
+        return pad_to_multiple(normalize_uint8(f_u8.permute(0, 3, 1, 2),
+                                               self.compute_dtype),
+                               self.cfg.pad_multiple)
+
+    def _flow_sample(self, model, x1, x2, flow, mask, t):
+        """One sample at times ``t`` [B] from a precomputed field: the
+        sampler, then the head (on the card the ``sample_fused`` and
+        ``refine_head`` kernels, which launch or raise)."""
+        if not warp_fused.eligible(self.cfg, x1.permute(0, 2, 3, 1).shape):
+            raise ValueError(f"the flow sampler does not take frames of "
+                             f"shape {tuple(x1.shape)} (NCHW)")
+        return model.sample(x1, x2, flow, mask, t)
+
     def _build_pair_fn(self, n_out: int, depth: int):
-        """uint8 [B,H,W,C] pair -> uint8 [B, n_out, H, W, C]: ``n_out`` of
-        the 2**depth - 1 dyadic intermediates, at the times nearest to
-        i/(n_out+1) (exact when n_out+1 is a power of two)."""
+        """uint8 [B,H,W,C] pair -> uint8 [B, n_out, H, W, C].
+
+        U-Net family: ``n_out`` of the 2**depth - 1 dyadic intermediates,
+        at the times nearest to i/(n_out+1) (exact when n_out+1 is a power
+        of two). Flow family: one motion pass, then ``n_out`` samples at
+        the exact times i/(n_out+1); ``depth`` is ignored."""
+        cdt = self.compute_dtype
+        if self.cfg.arch == "flow":
+
+            def flow_fn(model, f1_u8, f2_u8):
+                with torch.inference_mode():
+                    x1, hw = self._prep(f1_u8)
+                    x2, _ = self._prep(f2_u8)
+                    flow, mask = model.motion(x1, x2)
+                    outs = []
+                    for i in range(n_out):
+                        t = torch.full((x1.shape[0],), (i + 1) / (n_out + 1),
+                                       dtype=torch.float32, device=x1.device)
+                        y = self._flow_sample(model, x1, x2, flow, mask, t)
+                        outs.append(crop_to(y.to(cdt), hw))
+                    out = denormalize_to_uint8(torch.stack(outs, 1))
+                    return out.permute(0, 1, 3, 4, 2)
+
+            return flow_fn
         total = 2 ** depth - 1
         if n_out == total:
             idx = list(range(total))
         else:
             idx = [min(total - 1, round((i + 1) * (total + 1) / (n_out + 1)) - 1)
                    for i in range(n_out)]
-        cdt, mult = self.compute_dtype, self.cfg.pad_multiple
-
-        def prep(f_u8):
-            return pad_to_multiple(
-                normalize_uint8(f_u8.permute(0, 3, 1, 2), cdt), mult)
 
         def fn(model, f1_u8, f2_u8):
             with torch.inference_mode():
-                x1, hw = prep(f1_u8)
-                x2, _ = prep(f2_u8)
+                x1, hw = self._prep(f1_u8)
+                x2, _ = self._prep(f2_u8)
                 mids = _bisect(self._forward, model, x1, x2, depth)
                 out = torch.stack([crop_to(mids[i], hw) for i in idx], 1)
                 return denormalize_to_uint8(out).permute(0, 1, 3, 4, 2)
 
         return fn
 
+    def _time_fn(self, n_t: int):
+        key = ("time", n_t)
+        if key not in self._fn_cache:
+            self._fn_cache[key] = self._build_time_fn(n_t)
+        return self._fn_cache[key]
+
+    def _build_time_fn(self, n_t: int):
+        """uint8 pair batch and times ``ts`` ([n_t], or [n_t, B] for a time
+        per pair) -> uint8 [B, n_t, H, W, C]: one motion pass for the flow
+        family, one forward per time for a ``time_conditioned`` U-Net."""
+        cdt = self.compute_dtype
+        is_flow = self.cfg.arch == "flow"
+
+        def fn(model, f1_u8, f2_u8, ts):
+            with torch.inference_mode():
+                x1, hw = self._prep(f1_u8)
+                x2, _ = self._prep(f2_u8)
+                b = x1.shape[0]
+                if is_flow:
+                    flow, mask = model.motion(x1, x2)
+                outs = []
+                for i in range(n_t):
+                    t = ts[i].to(torch.float32).expand(b).contiguous()
+                    if is_flow:
+                        y = self._flow_sample(model, x1, x2, flow, mask, t)
+                    else:
+                        y = model(x1, x2, t=t)
+                    outs.append(crop_to(y.to(cdt), hw))
+                out = denormalize_to_uint8(torch.stack(outs, 1))
+                return out.permute(0, 1, 3, 4, 2)
+
+        return fn
+
     # -- public API ---------------------------------------------------------
+
+    @property
+    def supports_exact_time(self) -> bool:
+        """True when the model samples arbitrary times in one shot (the
+        flow family by construction, or a ``time_conditioned`` U-Net)."""
+        return self.cfg.time_conditioned or self.cfg.arch == "flow"
+
+    def interpolate_at(self, f1: np.ndarray, f2: np.ndarray,
+                       times: Sequence[float]) -> List[np.ndarray]:
+        """HWC uint8 frames at the given times in (0, 1), in that order."""
+        if not self.supports_exact_time:
+            raise ValueError(
+                "interpolate_at requires a time_conditioned model; "
+                "use generate_intermediate_frames (bisection) instead")
+        ts = torch.tensor(list(times), dtype=torch.float32, device=self.device)
+        out = self._time_fn(len(times))(self.model, self._put(f1[None]),
+                                        self._put(f2[None]), ts)
+        out = out[0].cpu().numpy()
+        return [out[i] for i in range(len(times))]
 
     def interpolate_pair(self, f1: np.ndarray, f2: np.ndarray) -> np.ndarray:
         """Midpoint between two HWC uint8 frames -> HWC uint8."""
@@ -190,8 +279,9 @@ class InterpolationEngine:
 
     def generate_intermediate_frames(self, f1: np.ndarray, f2: np.ndarray,
                                      num: int) -> List[np.ndarray]:
-        """``num`` in-between HWC uint8 frames in time order, by recursive
-        midpoint bisection."""
+        """``num`` in-between HWC uint8 frames in time order: by recursive
+        midpoint bisection (U-Net family), or sampled at the exact times
+        i/(num+1) from one motion pass (flow family)."""
         if num < 1:
             raise ValueError("num must be >= 1")
         depth = max(1, math.ceil(math.log2(num + 1)))

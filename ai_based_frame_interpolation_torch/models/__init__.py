@@ -1,3 +1,4 @@
+from .flow import FlowInterpolator  # noqa: F401
 from .unet import (DoubleConv, Down, FrameInterpolationUNet, UNet, Up,  # noqa: F401
                    count_parameters, fold_batchnorm)
 
@@ -7,9 +8,11 @@ def build_model(cfg, compute_dtype=None, folded=False):
     init; callers load a state dict or initialise them)."""
     import torch
 
+    cdt = compute_dtype or torch.bfloat16
+    if cfg.arch == "flow":
+        return FlowInterpolator(cfg, cdt, folded=folded)
     if cfg.arch != "unet":
         raise NotImplementedError(
             f"the {cfg.arch!r} family is not ported yet (ROADMAP Queue A "
-            f"item {8 if cfg.arch == 'flow' else 11})")
-    return FrameInterpolationUNet(cfg, compute_dtype or torch.bfloat16,
-                                  folded=folded)
+            "item 11)")
+    return FrameInterpolationUNet(cfg, cdt, folded=folded)

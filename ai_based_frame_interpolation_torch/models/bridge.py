@@ -5,8 +5,10 @@ Input: a Flax variables tree of numpy arrays, ``{"params", "batch_stats"}``
 to OIHW; the 2x2 transposed conv goes to PyTorch's (in, out, kh, kw) with
 its taps flipped (Flax's ``ConvTranspose`` does not flip the kernel,
 PyTorch's does); BatchNorm ``scale/bias/mean/var`` become
-``weight/bias/running_mean/running_var``. Any key outside the U-Net family's
-modules raises ``KeyError``.
+``weight/bias/running_mean/running_var``. Both ported families map: the
+U-Net family (``unet/...``, the heads) and the flow family's single-field
+model (``motion_unet/...`` and its head). Any other key raises ``KeyError``,
+the flow cascade's ``cascade{k}_*`` among them until the cascade is ported.
 """
 
 from __future__ import annotations
@@ -20,11 +22,13 @@ import torch
 _TOP = ("refine1", "refine2", "refine_out", "refine2_dw", "refine2_pw")
 _UNET_BLOCK = re.compile(r"^(inc|outc|down\d+|up\d+)$")
 _INNER = ("conv", "conv1", "conv2", "bn1", "bn2", "up")
+_BACKBONES = ("unet", "motion_unet")     # U-Net family, flow family
 
 
 def _check_path(path: Tuple[str, ...]) -> None:
     ok = (len(path) == 1 and path[0] in _TOP) or (
-        len(path) >= 2 and path[0] == "unet" and _UNET_BLOCK.match(path[1])
+        len(path) >= 2 and path[0] in _BACKBONES
+        and _UNET_BLOCK.match(path[1])
         and all(p in _INNER for p in path[2:]))
     if not ok:
         raise KeyError(f"no port module for Flax key {'/'.join(path)}")
@@ -35,7 +39,8 @@ def _tensor(a) -> torch.Tensor:
 
 
 def flax_to_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
-    """The port ``state_dict`` for a Flax U-Net-family variables tree."""
+    """The port ``state_dict`` for a Flax U-Net- or flow-family variables
+    tree."""
     unknown = set(variables) - {"params", "batch_stats"}
     if unknown:
         raise KeyError(f"unexpected variable collections {sorted(unknown)}")

@@ -27,7 +27,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..config import ModelConfig
-from ..ops.refine import refine_head, refine_head_reference
+from ..ops.refine import (pack_head_weights, refine_head,
+                          refine_head_reference)
 from ..ops.resize import upsample2x_align_corners, upsample2x_half_pixel
 
 torch.backends.cudnn.allow_tf32 = False
@@ -210,6 +211,16 @@ class FrameInterpolationUNet(nn.Module):
             else:
                 self.refine2 = nn.Conv2d(w, w, 3, padding=1)
             self.refine_out = nn.Conv2d(w, cg, 1)
+        self.packed_head: Optional[dict] = None
+
+    def pack_head(self) -> None:
+        """Build the head kernel's weight layouts once, from the weights as
+        loaded and placed now (``ops.refine.pack_head_weights``); the
+        engine calls it after loading. Forward passes them to every head
+        call, so it must be called again after the weights change."""
+        dense = self.has_head and not self.cfg.refine_depthwise
+        self.packed_head = pack_head_weights(self.head_params()) \
+            if dense else None
 
     def head_params(self) -> dict:
         """The refinement head's weights, ``{name: {"weight", "bias"}}``."""
@@ -246,10 +257,15 @@ class FrameInterpolationUNet(nn.Module):
                 "(ROADMAP Queue B item 1, depthwise variant)")
         g = cfg.refine_factor
         yg, p1, p2 = (depth_to_space(a, r // g) for a in (y, f1, f2))
+        planes = (_nhwc(p1), _nhwc(p2))
         # the full-resolution head is the main path's kernel; a head at a
         # coarser factor has none (nor has it in the JAX package)
-        head = refine_head if g == 1 else refine_head_reference
-        out = head(_nhwc(yg), (_nhwc(p1), _nhwc(p2)), self.head_params(), cdt)
+        if g == 1:
+            out = refine_head(_nhwc(yg), planes, self.head_params(), cdt,
+                              self.packed_head)
+        else:
+            out = refine_head_reference(_nhwc(yg), planes,
+                                        self.head_params(), cdt)
         return depth_to_space(out.permute(0, 3, 1, 2), g)
 
 

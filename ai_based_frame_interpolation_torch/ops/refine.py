@@ -7,15 +7,15 @@ Counterpart of the JAX package's ``ops/pallas/refine_fused.py``. With
     z2  = relu(conv3x3(z1 -> w) + b2)      # or depthwise 3x3 + pointwise 1x1
     out = pred + conv1x1_f32(z2 -> C)      # f32, then the compute dtype
 
-:func:`refine_head` launches ``csrc/refine_head.cu`` for CUDA tensors and
-runs :func:`refine_head_reference` for CPU tensors. Both take the JAX
-function's NHWC layout.
+:func:`refine_head` launches ``csrc/refine_head.cu`` (dense head, width 16
+or 64) for CUDA tensors and runs :func:`refine_head_reference` for CPU
+tensors. Both take the JAX function's NHWC layout.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -57,15 +57,38 @@ def refine_head_reference(y_full: torch.Tensor, planes: Sequence[torch.Tensor],
     return (pred + delta).to(cdt).permute(0, 2, 3, 1)
 
 
-_WIDTH = 64          # the kernel's head width (the production head)
+_WIDTHS = (16, 64)    # the kernel's head widths (flow, U-Net production)
 _MAX_PLANES = 4      # planes besides the prediction (flow: g0, g1, f1, f2)
+
+
+def pack_head_weights(params: dict) -> dict:
+    """The dense head's weights in the kernel's layouts: w1 as (out, tap,
+    plane), w2 as (tap, out, in), both bf16 with bf16 biases; w3 as
+    (in, C) and b3 in f32. A model builds them once when its weights are
+    loaded (``pack_head``) and passes them to every :func:`refine_head`
+    call."""
+    w1 = params["refine1"]["weight"]
+    width, nplanes = int(w1.shape[0]), int(w1.shape[1])
+    c = int(params["refine_out"]["weight"].shape[0])
+    bf16 = torch.bfloat16
+    return {
+        "w1": w1.permute(0, 2, 3, 1).reshape(width, 9 * nplanes).to(bf16)
+        .contiguous(),
+        "b1": params["refine1"]["bias"].to(bf16).contiguous(),
+        "w2": params["refine2"]["weight"].permute(2, 3, 0, 1)
+        .reshape(9, width, width).to(bf16).contiguous(),
+        "b2": params["refine2"]["bias"].to(bf16).contiguous(),
+        "w3": params["refine_out"]["weight"].reshape(c, width).t()
+        .to(torch.float32).contiguous(),
+        "b3": params["refine_out"]["bias"].to(torch.float32).contiguous(),
+    }
 
 
 def _lib():
     lib = _build.load("refine_head")
     fn = lib.refine_head_bf16
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 +
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 +
                        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 +
                        [ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -73,11 +96,14 @@ def _lib():
 
 
 def refine_head(y_full: torch.Tensor, planes: Sequence[torch.Tensor],
-                params: dict, compute_dtype=torch.bfloat16) -> torch.Tensor:
+                params: dict, compute_dtype=torch.bfloat16,
+                packed: Optional[dict] = None) -> torch.Tensor:
     """The refinement head: the plain version for CPU tensors, the CUDA
     kernel for CUDA tensors (which raises on what the kernel does not
-    take). Arguments as :func:`refine_head_reference`.
-    ``refine_head.launches`` counts kernel launches."""
+    take). Arguments as :func:`refine_head_reference`; planes may be bf16
+    or f32 (the kernel rounds f32 planes to bf16 as it reads them).
+    ``packed`` is :func:`pack_head_weights` of ``params``, built here when
+    not given. ``refine_head.launches`` counts kernel launches."""
     if y_full.device.type == "cpu":
         return refine_head_reference(y_full, planes, params, compute_dtype)
     if y_full.device.type != "cuda":
@@ -91,42 +117,39 @@ def refine_head(y_full: torch.Tensor, planes: Sequence[torch.Tensor],
                          f"compute_dtype={compute_dtype}")
     b, h, w, c = y_full.shape
     nplanes = (1 + len(planes)) * c
-    w1 = params["refine1"]["weight"]
-    width = int(w1.shape[0])
+    kw = packed if packed is not None else pack_head_weights(params)
+    width = int(kw["w1"].shape[0])
     if c not in (1, 3) or not 1 <= len(planes) <= _MAX_PLANES:
         raise ValueError(f"refine_head kernel: C={c} with {len(planes)} "
                          "planes is not supported (C in {1, 3}, 1-4 planes)")
-    if width != _WIDTH or tuple(w1.shape) != (width, nplanes, 3, 3):
-        raise ValueError(f"refine_head kernel: refine1 weight {tuple(w1.shape)}"
-                         f" does not match width {_WIDTH} and {nplanes} planes")
-    for p in planes:
-        if tuple(p.shape) != (b, h, w, c) or p.device != y_full.device:
+    if width not in _WIDTHS or tuple(kw["w1"].shape) != (width, 9 * nplanes) \
+            or tuple(kw["w3"].shape) != (width, c):
+        raise ValueError(f"refine_head kernel: weights {tuple(kw['w1'].shape)}"
+                         f" do not match a width in {_WIDTHS} with {nplanes} "
+                         f"planes and C={c}")
+    dev = y_full.device
+    extra, f32_bits = [], 0
+    for k, p in enumerate(planes):
+        if tuple(p.shape) != (b, h, w, c) or p.device != dev:
             raise ValueError("refine_head: every plane must match y_full's "
                              "shape and device")
-    bf16 = torch.bfloat16
-    dev = y_full.device
+        if p.dtype == torch.float32:
+            f32_bits |= 1 << k
+        elif p.dtype != torch.bfloat16:
+            p = p.to(torch.bfloat16)
+        extra.append(p.contiguous())
+    if any(t.device != dev for t in kw.values()):
+        raise ValueError("refine_head: weights must be on y_full's device")
     pred = y_full.to(torch.float32).contiguous()
-    extra = [p.to(bf16).contiguous() for p in planes]
-    # w1 as (out, tap, plane), w2 as (tap, out, in): the kernel's layouts
-    w1k = w1.permute(0, 2, 3, 1).reshape(width, 9 * nplanes).to(bf16).contiguous()
-    b1k = params["refine1"]["bias"].to(bf16).contiguous()
-    w2k = (params["refine2"]["weight"].permute(2, 3, 0, 1)
-           .reshape(9, width, width).to(bf16).contiguous())
-    b2k = params["refine2"]["bias"].to(bf16).contiguous()
-    w3k = (params["refine_out"]["weight"].reshape(c, width).t()
-           .to(torch.float32).contiguous())
-    b3k = params["refine_out"]["bias"].to(torch.float32).contiguous()
-    for t in (w1k, b1k, w2k, b2k, w3k, b3k):
-        if t.device != dev:
-            raise ValueError("refine_head: weights must be on y_full's device")
-    out = torch.empty((b, h, w, c), dtype=bf16, device=dev)
+    out = torch.empty((b, h, w, c), dtype=torch.bfloat16, device=dev)
     ptrs = [p.data_ptr() for p in extra] + [None] * (_MAX_PLANES - len(extra))
     fn = _lib()
     with torch.cuda.device(dev):
-        err = fn(pred.data_ptr(), *ptrs, nplanes, c, w1k.data_ptr(),
-                 b1k.data_ptr(), w2k.data_ptr(), b2k.data_ptr(),
-                 w3k.data_ptr(), b3k.data_ptr(), out.data_ptr(), b, h, w,
-                 width, torch.cuda.current_stream(dev).cuda_stream)
+        err = fn(pred.data_ptr(), *ptrs, f32_bits, nplanes, c,
+                 kw["w1"].data_ptr(), kw["b1"].data_ptr(), kw["w2"].data_ptr(),
+                 kw["b2"].data_ptr(), kw["w3"].data_ptr(), kw["b3"].data_ptr(),
+                 out.data_ptr(), b, h, w, width,
+                 torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"refine_head kernel launch failed: CUDA error {err}")
     refine_head.launches += 1

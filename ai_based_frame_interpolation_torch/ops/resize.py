@@ -1,5 +1,5 @@
-"""Padding, cropping and the decoder's 2x bilinear upsamples (JAX
-``ops/resize.py``).
+"""Padding, cropping, the decoder's 2x bilinear upsamples and the
+arbitrary-size bilinear resize (JAX ``ops/resize.py``).
 
 The port works in NCHW: every function here takes ``[..., H, W]`` with the
 spatial axes last. The JAX functions take NHWC; tests transpose.
@@ -48,6 +48,15 @@ def upsample2x_half_pixel(x: torch.Tensor) -> torch.Tensor:
     same grid as ``F.interpolate(align_corners=False)``."""
     return F.interpolate(x, scale_factor=2, mode="bilinear",
                          align_corners=False)
+
+
+def resize_bilinear(x: torch.Tensor, out_hw: Tuple[int, int],
+                    align_corners: bool = True) -> torch.Tensor:
+    """Bilinear resize of ``[B,C,H,W]`` to ``out_hw``: the JAX function's
+    grid (torch ``F.interpolate`` semantics at the target size, which is
+    what the JAX golden test holds it to)."""
+    return F.interpolate(x, size=tuple(out_hw), mode="bilinear",
+                         align_corners=align_corners)
 
 
 def _edge_index(n: int, pad: int, device) -> torch.Tensor:

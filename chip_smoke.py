@@ -5,17 +5,25 @@
 Drives the port only (it imports nothing of JAX or of the JAX package):
 
 1. prints the card (``nvidia-smi`` name and power limit), builds every CUDA
-   source of the package for sm_90a and prints the build time;
+   source of the package for sm_90a (one ``nvcc`` each, all at once) and
+   prints the build time;
 2. holds each kernel against its plain PyTorch version on the card, at the
-   main path's shapes and a few more;
-3. drives the main path once: the full-width production U-Net engine
+   main paths' shapes and a few more: the refinement head at width 64 (the
+   U-Net head) and 16 (the flow head, 5 or 15 planes), and the flow
+   sampler;
+3. drives the U-Net path once: the full-width production U-Net engine
    (s2d 4, base 64, depth 4, residual, refinement head 64, half-pixel
    decoder, random weights from a seed) on a batch of 8 gray 1080p frame
    pairs, with every kernel's launch count set to 0 just before and read
    just after, and checks the output against the same port modules composed
-   with the plain head;
-4. answers concurrent requests through the port's batcher;
-5. times the engine and each kernel with CUDA events.
+   with the plain head; then answers concurrent requests through the port's
+   batcher;
+4. drives the flow path the same way: the full-width flow production engine
+   (base 32, depth 4, flow_scale 4, refinement head 16, shifts warp,
+   max_flow 16) on 8 gray 1080p pairs, checked against the same modules
+   composed with the plain sampler and head, then 3 in-betweens, two
+   arbitrary times and concurrent requests through the batcher;
+5. times both engines and each kernel with CUDA events.
 
 Any failure raises and exits non-zero. It prints the kernel record as one
 JSON line before the last, and as the last line
@@ -39,6 +47,10 @@ H100_HBM_BYTES = 3.35e12       # HBM3 bandwidth, B/s
 FLOAT_BOUND = 0.032            # 2 bf16 ulp at |x| < 4 (see check_kernel)
 PROD = dict(space_to_depth=4, residual=True, refine_width=64,
             upsample="half_pixel")
+FLOW_PROD = dict(arch="flow", base_width=32, flow_scale=4, refine_width=16,
+                 warp_impl="shifts", max_flow=16)
+H100_F32_FLOPS = 67e12         # f32 outside the tensor cores, FLOP/s
+SAMPLER_BOUND = 1e-5           # f32 lerps rounded where the plain version rounds
 
 
 def card() -> str:
@@ -63,8 +75,10 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def head_inputs(b, h, w, c, nextra, width=64, seed=0):
-    """Random head inputs and weights (PyTorch layouts) on the card."""
+def head_inputs(b, h, w, c, nextra, width=64, seed=0, nf32=0):
+    """Random head inputs and weights (PyTorch layouts) on the card; the
+    first ``nf32`` planes are f32 (the flow sampler's warped frames), the
+    rest bf16."""
     gen = torch.Generator().manual_seed(seed)
     nplanes = (1 + nextra) * c
 
@@ -78,11 +92,12 @@ def head_inputs(b, h, w, c, nextra, width=64, seed=0):
               "refine_out": conv(width, c, 1)}
     y = (torch.rand(b, h, w, c, generator=gen) * 2 - 1).cuda()
     planes = [(torch.rand(b, h, w, c, generator=gen) * 2 - 1).to(
-        torch.bfloat16).cuda() for _ in range(nextra)]
+        torch.float32 if k < nf32 else torch.bfloat16).cuda()
+        for k in range(nextra)]
     return y, planes, params
 
 
-def check_kernel(shape) -> float:
+def check_kernel(shape, width=64, nf32=0) -> float:
     """The refine_head kernel vs its plain version on the card: within
     FLOAT_BOUND (both round each conv to bf16 around its bias; f32 sums in
     another order can flip a value on a rounding boundary by one ulp, which
@@ -93,7 +108,7 @@ def check_kernel(shape) -> float:
         refine_head, refine_head_reference)
 
     b, h, w, c, nextra = shape
-    y, planes, params = head_inputs(b, h, w, c, nextra)
+    y, planes, params = head_inputs(b, h, w, c, nextra, width, nf32=nf32)
     before = refine_head.launches
     got = refine_head(y, planes, params)
     torch.cuda.synchronize()
@@ -101,7 +116,8 @@ def check_kernel(shape) -> float:
     want = refine_head_reference(y, planes, params)
     err = float((got.float() - want.float()).abs().max())
     du = (denormalize_to_uint8(got).int() - denormalize_to_uint8(want).int()).abs()
-    print(f"refine_head B={b} {h}x{w} C={c} planes={(1 + nextra) * c}: "
+    print(f"refine_head w{width} B={b} {h}x{w} C={c} planes="
+          f"{(1 + nextra) * c} ({nf32 * c} f32): "
           f"max|kernel-plain|={err:.6g} uint8 differing={float((du > 0).float().mean()):.6g}"
           f" max uint8 diff={int(du.max())}", flush=True)
     assert got.shape == want.shape and got.dtype == torch.bfloat16
@@ -109,6 +125,43 @@ def check_kernel(shape) -> float:
     assert err <= FLOAT_BOUND, f"kernel disagrees by {err}"
     assert int(du.max()) <= 1, f"kernel disagrees by {int(du.max())} LSB"
     return err
+
+
+def sampler_inputs(b, h, w, c, max_flow, ts, dtype=torch.bfloat16, seed=0):
+    """Random sampler inputs on the card: frames in ``dtype``, flows out to
+    1.5x the bound (so the clamp acts), the flow as the NHWC view of an
+    NCHW field (the engine's layout), per-item times ``ts``."""
+    gen = torch.Generator().manual_seed(seed)
+    f1, f2 = ((torch.rand(b, h, w, c, generator=gen) * 2 - 1).to(dtype).cuda()
+              for _ in range(2))
+    flow = ((torch.rand(b, 2, h, w, generator=gen) * 2 - 1)
+            * 1.5 * max_flow).cuda().permute(0, 2, 3, 1)
+    mask = torch.rand(b, h, w, 1, generator=gen).cuda()
+    t = torch.tensor(ts, dtype=torch.float32).cuda()
+    return f1, f2, flow, mask, t
+
+
+def check_sampler(b, h, w, c, max_flow, ts, dtype=torch.bfloat16) -> float:
+    """The sample_fused kernel vs its plain version on the card: out, g0
+    and g1 within SAMPLER_BOUND."""
+    from ai_based_frame_interpolation_torch.ops.warp_fused import (
+        sample_fused, sample_fused_reference)
+
+    args = sampler_inputs(b, h, w, c, max_flow, ts, dtype)
+    before = sample_fused.launches
+    got = sample_fused(*args, max_flow=max_flow)
+    torch.cuda.synchronize()
+    assert sample_fused.launches == before + 1, "sample_fused did not launch"
+    want = sample_fused_reference(*args, max_flow=max_flow)
+    errs = [float((g - r).abs().max()) for g, r in zip(got, want)]
+    print(f"sample_fused B={b} {h}x{w} C={c} mf{max_flow} {dtype} t={ts}: "
+          f"max|kernel-plain| out/g0/g1 = "
+          f"{' / '.join(f'{e:.3g}' for e in errs)}", flush=True)
+    for g in got:
+        assert g.shape == (b, h, w, c) and g.dtype == torch.float32
+        assert bool(torch.isfinite(g).all())
+    assert max(errs) <= SAMPLER_BOUND, f"sampler disagrees by {max(errs)}"
+    return max(errs)
 
 
 def frames(n, h, w, seed):
@@ -150,39 +203,90 @@ def reference_midpoints(engine, f1, f2) -> torch.Tensor:
         return denormalize_to_uint8(crop_to(out, hw)).permute(0, 2, 3, 1)
 
 
-def head_flops_bytes(b, h, w, c, nplanes, width=64):
+def reference_flow(engine, f1, f2, ts) -> torch.Tensor:
+    """The flow engine's samples at times ``ts`` composed from the same
+    port modules with the plain sampler and head, for the check only."""
+    from ai_based_frame_interpolation_torch.ops.image import (
+        denormalize_to_uint8)
+    from ai_based_frame_interpolation_torch.ops.refine import (
+        refine_head_reference)
+    from ai_based_frame_interpolation_torch.ops.resize import crop_to
+    from ai_based_frame_interpolation_torch.ops.warp_fused import (
+        sample_fused_reference)
+
+    cdt, model = engine.compute_dtype, engine.model
+    nhwc = lambda x: x.permute(0, 2, 3, 1)  # noqa: E731
+    with torch.inference_mode():
+        x1, hw = engine._prep(engine._put(f1))
+        x2, _ = engine._prep(engine._put(f2))
+        flow, mask = model.motion(x1, x2)
+        outs = []
+        for t in ts:
+            tt = torch.full((x1.shape[0],), t, dtype=torch.float32,
+                            device=x1.device)
+            out, g0, g1 = sample_fused_reference(
+                nhwc(x1), nhwc(x2), nhwc(flow), nhwc(mask), tt,
+                engine.cfg.max_flow)
+            y = refine_head_reference(out, (g0, g1, nhwc(x1), nhwc(x2)),
+                                      model.head_params(), cdt)
+            outs.append(crop_to(y.permute(0, 3, 1, 2), hw))
+        out = denormalize_to_uint8(torch.stack(outs, 1))
+        return out.permute(0, 1, 3, 4, 2)
+
+
+def head_flops_bytes(b, h, w, c, nplanes, width=64, nf32=0):
+    """FLOPs and device bytes of the head: every input read once (``nf32``
+    of the planes besides the prediction in f32, the rest bf16), the bf16
+    output written once, the weights read once."""
     px = b * h * w
     flops = 2 * px * (9 * nplanes * width + 9 * width * width + width * c)
     weights = 2 * (9 * nplanes * width + width + 9 * width * width + width) \
         + 4 * (width * c + c)
-    byts = px * (4 * c + 2 * (nplanes - c) + 2 * c) + weights
+    byts = px * (4 * c + 4 * nf32 * c + 2 * (nplanes - c - nf32 * c)
+                 + 2 * c) + weights
     return flops, byts
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device; this script runs on the card",
-              file=sys.stderr)
-        return 2
-    from ai_based_frame_interpolation_torch.config import ModelConfig
-    from ai_based_frame_interpolation_torch.infer.engine import (
-        InterpolationEngine)
+def sampler_flops_bytes(b, h, w, c, img_bytes=2):
+    """FLOPs and device bytes of the sampler: f1 and f2, the two flow
+    planes, the mask and t read once, out, g0 and g1 (f32) written once.
+    Per pixel and warp, three taps (mul, add, sub: 9) and three lerps per
+    channel (4 each); the blend 6 + 4 per channel."""
+    px = b * h * w
+    flops = px * (2 * (9 + 12 * c) + 6 + 4 * c)
+    byts = px * (2 * img_bytes * c + 8 + 4 + 12 * c) + 4 * b
+    return flops, byts
+
+
+def bound(flops, byts, peak_flops):
+    """(bound ms, what bounds it) on the H100's published peaks."""
+    t_ops, t_bytes = flops / peak_flops, byts / H100_HBM_BYTES
+    return max(t_ops, t_bytes) * 1e3, \
+        ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def reset_counts() -> None:
+    from ai_based_frame_interpolation_torch.ops.refine import refine_head
+    from ai_based_frame_interpolation_torch.ops.warp_fused import (
+        sample_fused)
+
+    refine_head.launches = 0
+    sample_fused.launches = 0
+
+
+def counts() -> dict:
+    from ai_based_frame_interpolation_torch.ops.refine import refine_head
+    from ai_based_frame_interpolation_torch.ops.warp_fused import (
+        sample_fused)
+
+    return {"refine_head": refine_head.launches,
+            "sample_fused": sample_fused.launches}
+
+
+def build(record) -> None:
+    """Every kernel source, one nvcc each, all at once."""
     from ai_based_frame_interpolation_torch.ops import _build
-    from ai_based_frame_interpolation_torch.ops.refine import (
-        refine_head, refine_head_reference)
-    from ai_based_frame_interpolation_torch.serve.batcher import (
-        DynamicBatcher)
 
-    t_start = time.perf_counter()
-    smi = card()
-    kind = torch.cuda.get_device_name(0)
-    print(smi, flush=True)
-    print(f"torch {torch.__version__} cuda {torch.version.cuda} device {kind}",
-          flush=True)
-    record = {"card": smi, "torch": torch.__version__,
-              "cuda": torch.version.cuda}
-
-    # 1. build every kernel source, one nvcc each, all at once
     t0 = time.perf_counter()
     _build.build()
     record["build_s"] = time.perf_counter() - t0
@@ -193,43 +297,44 @@ def main() -> int:
             if "registers" in line or "spill" in line or "error" in line:
                 print(f"  {name}: {line.strip()}", flush=True)
 
-    # 2. each kernel against its plain version on the card
-    # the main path's shapes (8x1088x1920; the batcher's 4x256x256), one
-    # 1080p frame, widths 128/256, heights that are not a multiple of 16,
-    # RGB (9 planes) and 5 planes
+
+def check_kernels(record) -> None:
+    """Each kernel against its plain version on the card."""
+    # w64: the U-Net path's shapes (8x1088x1920; the batcher's 4x256x256),
+    # one 1080p frame, widths 128/256, heights that are not a multiple of
+    # 16, RGB (9 planes) and 5 planes
     shapes = [(8, 1088, 1920, 1, 2), (4, 256, 256, 1, 2), (1, 1088, 1920, 1, 2),
               (2, 72, 128, 1, 2), (2, 40, 256, 1, 2), (1, 40, 72, 3, 2),
               (2, 56, 96, 1, 4)]
-    errs = [check_kernel(s) for s in shapes]
-    record["refine_head_max_abs_err"] = max(errs)
+    record["refine_head_w64_max_abs_err"] = max(check_kernel(s) for s in shapes)
+    # w16: the flow path's 5 planes with f32 g0/g1 (8x1088x1920, the
+    # batcher's 256x256), small widths, heights 40 and 50, RGB (15 planes),
+    # and all-bf16 planes
+    shapes = [(8, 1088, 1920, 1, 4), (4, 256, 256, 1, 4), (2, 72, 128, 1, 4),
+              (2, 40, 256, 1, 4), (1, 40, 72, 3, 4), (2, 50, 96, 1, 4)]
+    errs = [check_kernel(s, width=16, nf32=2) for s in shapes]
+    errs.append(check_kernel((2, 56, 96, 1, 4), width=16))
+    record["refine_head_w16_max_abs_err"] = max(errs)
+    # the sampler: the flow path's 8x1088x1920 at mf16 with a time per
+    # item, a 1080p frame at mf32, odd sizes, RGB, f32 frames, and frames
+    # narrower than 2*max_flow + 2
+    errs = [check_sampler(8, 1088, 1920, 1, 16,
+                          [0.5, 0.25, 0.8, 0.1, 0.9, 0.33, 0.6, 0.75]),
+            check_sampler(1, 1088, 1920, 1, 32, [0.5]),
+            check_sampler(2, 129, 257, 1, 16, [0.33, 0.7]),
+            check_sampler(2, 72, 160, 3, 16, [0.5, 0.3]),
+            check_sampler(2, 72, 160, 1, 8, [0.4, 0.6], torch.float32),
+            check_sampler(2, 9, 7, 1, 4, [0.4, 0.6])]
+    record["sample_fused_max_abs_err"] = max(errs)
 
-    # 3. the main path: full-width production engine, 1080p gray 2x, b=8
-    engine = InterpolationEngine.random_init(ModelConfig(**PROD), seed=0)
-    f1, f2 = frames(8, 1080, 1920, seed=1)
-    refine_head.launches = 0
-    t0 = time.perf_counter()
-    out = engine.interpolate_batch(f1, f2)
-    main_s = time.perf_counter() - t0
-    launches = refine_head.launches
-    print(f"main path: interpolate_batch b=8 1080x1920 -> {out.shape} "
-          f"{out.dtype} in {main_s:.3f} s (first call); refine_head "
-          f"launches {launches}", flush=True)
-    assert launches > 0, "the main path did not run the refine_head kernel"
-    assert out.shape == (8, 1080, 1920, 1) and out.dtype == np.uint8
-    want = reference_midpoints(engine, f1, f2).cpu().numpy()
-    du = np.abs(out.astype(np.int16) - want.astype(np.int16))
-    print(f"main path vs plain head: max uint8 diff {int(du.max())}, "
-          f"differing {float((du > 0).mean()):.6g}, mean output "
-          f"{float(out.mean()):.3f}", flush=True)
-    assert int(du.max()) <= 1
-    record["main_path"] = {"batch": 8, "hw": [1080, 1920],
-                           "refine_head_launches": launches,
-                           "max_uint8_diff_vs_plain": int(du.max()),
-                           "uint8_differing_share": float((du > 0).mean())}
 
-    # 4. concurrent requests through the batcher at the serve default size
+def serve_requests(engine, seed) -> dict:
+    """8 concurrent 256x256 requests (num 1 and 3) through the batcher."""
+    from ai_based_frame_interpolation_torch.serve.batcher import (
+        DynamicBatcher)
+
     batcher = DynamicBatcher(engine, max_batch=8)
-    r1, r2 = frames(8, 256, 256, seed=2)
+    r1, r2 = frames(8, 256, 256, seed=seed)
     nums = [1 + 2 * (i % 2) for i in range(8)]
     answers = [None] * 8
     errors = []
@@ -243,7 +348,7 @@ def main() -> int:
         except BaseException as e:  # noqa: BLE001 — re-raised below
             errors.append(e)
 
-    refine_head.launches = 0
+    reset_counts()
     threads = [threading.Thread(target=request, args=(i,)) for i in range(8)]
     for t in threads:
         t.start()
@@ -255,36 +360,137 @@ def main() -> int:
     for i, ans in enumerate(answers):
         assert len(ans) == nums[i] and all(
             a.shape == (256, 256, 1) and a.dtype == np.uint8 for a in ans)
-    print(f"requests: 8 answered, batcher {batcher.stats}, refine_head "
-          f"launches {refine_head.launches}", flush=True)
-    assert refine_head.launches > 0
-    record["requests"] = dict(batcher.stats,
-                              refine_head_launches=refine_head.launches)
+    launches = counts()
+    print(f"requests: 8 answered, batcher {batcher.stats}, launches "
+          f"{launches}", flush=True)
+    return dict(batcher.stats, launches=launches)
 
-    # 5. timings (CUDA events, after warm-up)
-    timings = {}
+
+def unet_path(record):
+    """The U-Net path: full-width production engine, 1080p gray 2x, b=8,
+    counts set to 0 just before and read just after."""
+    from ai_based_frame_interpolation_torch.config import ModelConfig
+    from ai_based_frame_interpolation_torch.infer.engine import (
+        InterpolationEngine)
+
+    engine = InterpolationEngine.random_init(ModelConfig(**PROD), seed=0)
+    f1, f2 = frames(8, 1080, 1920, seed=1)
+    reset_counts()
+    t0 = time.perf_counter()
+    out = engine.interpolate_batch(f1, f2)
+    main_s = time.perf_counter() - t0
+    launches = counts()
+    print(f"U-Net path: interpolate_batch b=8 1080x1920 -> {out.shape} "
+          f"{out.dtype} in {main_s:.3f} s (first call); launches {launches}",
+          flush=True)
+    assert launches["refine_head"] > 0, \
+        "the U-Net path did not run the refine_head kernel"
+    assert out.shape == (8, 1080, 1920, 1) and out.dtype == np.uint8
+    want = reference_midpoints(engine, f1, f2).cpu().numpy()
+    du = np.abs(out.astype(np.int16) - want.astype(np.int16))
+    print(f"U-Net path vs plain head: max uint8 diff {int(du.max())}, "
+          f"differing {float((du > 0).mean()):.6g}, mean output "
+          f"{float(out.mean()):.3f}", flush=True)
+    assert int(du.max()) <= 1
+    record["main_path"] = {"batch": 8, "hw": [1080, 1920],
+                           "launches": launches,
+                           "max_uint8_diff_vs_plain": int(du.max()),
+                           "uint8_differing_share": float((du > 0).mean())}
+    record["requests"] = serve_requests(engine, seed=2)
+    assert record["requests"]["launches"]["refine_head"] > 0
+    return engine, launches
+
+
+def flow_path(record):
+    """The flow path: full-width flow production engine, 1080p gray 2x,
+    b=8, counts set to 0 just before and read just after; then 3
+    in-betweens, two arbitrary times and the batcher."""
+    from ai_based_frame_interpolation_torch.config import ModelConfig
+    from ai_based_frame_interpolation_torch.infer.engine import (
+        InterpolationEngine)
+
+    engine = InterpolationEngine.random_init(ModelConfig(**FLOW_PROD), seed=0)
+    f1, f2 = frames(8, 1080, 1920, seed=1)
+    reset_counts()
+    t0 = time.perf_counter()
+    out = engine.interpolate_batch(f1, f2)
+    main_s = time.perf_counter() - t0
+    launches = counts()
+    print(f"flow path: interpolate_batch b=8 1080x1920 -> {out.shape} "
+          f"{out.dtype} in {main_s:.3f} s (first call); launches {launches}",
+          flush=True)
+    assert launches == {"refine_head": 1, "sample_fused": 1}, \
+        "the flow path must launch each kernel once per dispatch"
+    assert out.shape == (8, 1080, 1920, 1) and out.dtype == np.uint8
+    want = reference_flow(engine, f1, f2, [0.5])[:, 0].cpu().numpy()
+    du = np.abs(out.astype(np.int16) - want.astype(np.int16))
+    print(f"flow path vs plain sampler and head: max uint8 diff "
+          f"{int(du.max())}, differing {float((du > 0).mean()):.6g}, mean "
+          f"output {float(out.mean()):.3f}", flush=True)
+    assert int(du.max()) <= 1
+    record["flow_path"] = {"batch": 8, "hw": [1080, 1920],
+                           "launches": launches,
+                           "max_uint8_diff_vs_plain": int(du.max()),
+                           "uint8_differing_share": float((du > 0).mean())}
+
+    # 3 in-betweens at t = 1/4, 1/2, 3/4 and two arbitrary times, one pair
+    for name, run, ts in (
+            ("generate_intermediate_frames(3)",
+             lambda: engine.generate_intermediate_frames(f1[0], f2[0], 3),
+             [0.25, 0.5, 0.75]),
+            ("interpolate_at([0.3, 0.7])",
+             lambda: engine.interpolate_at(f1[0], f2[0], [0.3, 0.7]),
+             [0.3, 0.7])):
+        reset_counts()
+        got = np.stack(run())
+        n = counts()
+        want = reference_flow(engine, f1[:1], f2[:1], ts)[0].cpu().numpy()
+        du = int(np.abs(got.astype(np.int16) - want.astype(np.int16)).max())
+        print(f"flow {name}: {got.shape}, launches {n}, max uint8 diff vs "
+              f"plain {du}", flush=True)
+        assert got.shape == (len(ts), 1080, 1920, 1) and du <= 1
+        assert n == {"refine_head": len(ts), "sample_fused": len(ts)}
+        record["flow_path"][name] = {"launches": n, "max_uint8_diff": du}
+    record["flow_requests"] = serve_requests(engine, seed=4)
+    assert record["flow_requests"]["launches"]["sample_fused"] > 0
+    return engine, launches
+
+
+def time_engine(engine, label, smi, sizes) -> dict:
+    """ms per 1080p gray 2x call, midpoints/s and output fps (originals +
+    midpoints, as bench.py counts them) at each (batch, iterations)."""
+    out = {}
     fn = engine._pair_fn(1, 1)
-    for b, iters in ((8, 10), (32, 4)):
+    for b, iters in sizes:
         g1, g2 = frames(b, 1080, 1920, seed=3)
         d1, d2 = engine._put(g1), engine._put(g2)
         ms = cuda_ms(lambda: fn(engine.model, d1, d2), iters, warmup=1)
         pairs_s = b / (ms / 1e3)
-        timings[f"engine_b{b}"] = {"ms_per_call": ms,
-                                   "midpoints_per_s": pairs_s,
-                                   "output_fps": 2 * pairs_s}
-        print(f"[{smi}] engine 1080p gray 2x b={b}: {ms:.3f} ms/call, "
+        out[f"{label}_b{b}"] = {"ms_per_call": ms, "midpoints_per_s": pairs_s,
+                                "output_fps": 2 * pairs_s}
+        print(f"[{smi}] {label} engine 1080p gray 2x b={b}: {ms:.3f} ms/call, "
               f"{pairs_s:.3f} midpoints/s, {2 * pairs_s:.3f} output fps",
               flush=True)
         del d1, d2
+    return out
 
-    b, h, w, c, nextra = 1, 1088, 1920, 1, 2
-    y, planes, params = head_inputs(b, h, w, c, nextra)
-    k_ms = cuda_ms(lambda: refine_head(y, planes, params), 10)
+
+def time_head(smi, width, nextra, nf32) -> dict:
+    """The head at 1x1088x1920 gray: kernel, plain, library (cuDNN bf16
+    channels_last convs with fused bias; timed here only) and bound."""
+    from ai_based_frame_interpolation_torch.ops.refine import (
+        pack_head_weights, refine_head, refine_head_reference)
+
+    b, h, w, c = 1, 1088, 1920, 1
+    y, planes, params = head_inputs(b, h, w, c, nextra, width, nf32=nf32)
+    packed = pack_head_weights(params)
+    k_ms = cuda_ms(lambda: refine_head(y, planes, params, packed=packed), 10)
     p_ms = cuda_ms(lambda: refine_head_reference(y, planes, params), 10)
     cl = torch.channels_last
     pred = y.permute(0, 3, 1, 2).contiguous(memory_format=cl)
     z0 = torch.cat([pred.to(torch.bfloat16)] + [
-        p.permute(0, 3, 1, 2) for p in planes], 1).contiguous(memory_format=cl)
+        p.permute(0, 3, 1, 2).to(torch.bfloat16) for p in planes],
+        1).contiguous(memory_format=cl)
     lw = {n: {"weight": p["weight"].to(torch.bfloat16).contiguous(
         memory_format=cl), "bias": p["bias"].to(torch.bfloat16)}
         for n, p in params.items()}
@@ -299,31 +505,94 @@ def main() -> int:
                                lw["refine_out"]["bias"])
 
     l_ms = cuda_ms(library, 10)
-    flops, byts = head_flops_bytes(b, h, w, c, (1 + nextra) * c)
-    t_ops, t_bytes = flops / H100_BF16_FLOPS, byts / H100_HBM_BYTES
-    bound_ms = max(t_ops, t_bytes) * 1e3
-    bound_by = "operations" if t_ops >= t_bytes else "bytes"
-    print(f"[{smi}] refine_head 1x1088x1920 gray 3 planes w64: kernel "
-          f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, library (cuDNN bf16 "
-          f"channels_last convs) {l_ms:.4f} ms, bound {bound_ms:.4f} ms "
-          f"({bound_by}: {flops / 1e9:.2f} GFLOP, {byts / 1e6:.2f} MB)",
+    nplanes = (1 + nextra) * c
+    flops, byts = head_flops_bytes(b, h, w, c, nplanes, width, nf32)
+    bound_ms, bound_by = bound(flops, byts, H100_BF16_FLOPS)
+    print(f"[{smi}] refine_head 1x1088x1920 gray {nplanes} planes ({nf32} "
+          f"f32) w{width}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+          f"library (cuDNN bf16 channels_last convs) {l_ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms ({bound_by}: {flops / 1e9:.2f} GFLOP, "
+          f"{byts / 1e6:.2f} MB)", flush=True)
+    return {"ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops,
+            "bytes": byts}
+
+
+def time_sampler(smi, max_flow=16) -> dict:
+    """The sampler at 1x1088x1920 gray bf16: kernel, plain and bound. No
+    single PyTorch call computes the shifts warp (``F.grid_sample`` is the
+    exact 2-D warp, with the x field read at the output row and no clamp),
+    so there is no library time."""
+    from ai_based_frame_interpolation_torch.ops.warp_fused import (
+        sample_fused, sample_fused_reference)
+
+    b, h, w, c = 1, 1088, 1920, 1
+    args = sampler_inputs(b, h, w, c, max_flow, [0.5])
+    k_ms = cuda_ms(lambda: sample_fused(*args, max_flow=max_flow), 20)
+    p_ms = cuda_ms(lambda: sample_fused_reference(*args, max_flow=max_flow),
+                   10)
+    flops, byts = sampler_flops_bytes(b, h, w, c)
+    bound_ms, bound_by = bound(flops, byts, H100_F32_FLOPS)
+    print(f"[{smi}] sample_fused 1x1088x1920 gray bf16 mf{max_flow}: kernel "
+          f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, library none (no single "
+          f"PyTorch call computes the shifts warp), bound {bound_ms:.4f} ms "
+          f"({bound_by}: {flops / 1e9:.3f} GFLOP, {byts / 1e6:.2f} MB)",
           flush=True)
-    timings["refine_head_1088x1920"] = {"ms": k_ms, "plain_ms": p_ms,
-                                        "library_ms": l_ms,
-                                        "bound_ms": bound_ms,
-                                        "bound_by": bound_by,
-                                        "flops": flops, "bytes": byts}
+    return {"ms": k_ms, "plain_ms": p_ms, "library_ms": None,
+            "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops,
+            "bytes": byts}
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs on the card",
+              file=sys.stderr)
+        return 2
+    t_start = time.perf_counter()
+    smi = card()
+    kind = torch.cuda.get_device_name(0)
+    print(smi, flush=True)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} device {kind}",
+          flush=True)
+    record = {"card": smi, "torch": torch.__version__,
+              "cuda": torch.version.cuda}
+
+    build(record)                              # 1.
+    check_kernels(record)                      # 2.
+    unet, unet_launches = unet_path(record)    # 3.
+    flow, flow_launches = flow_path(record)    # 4.
+
+    # 5. timings (CUDA events, after warm-up)
+    timings = time_engine(unet, "unet", smi, ((8, 10), (32, 4)))
+    del unet
+    timings.update(time_engine(flow, "flow", smi, ((8, 10), (32, 4))))
+    del flow
+    timings["refine_head_w64_1088x1920"] = time_head(smi, 64, 2, 0)
+    timings["refine_head_w16_1088x1920"] = time_head(smi, 16, 4, 2)
+    timings["sample_fused_1088x1920"] = time_sampler(smi)
     record["timings"] = timings
     record["seconds"] = time.perf_counter() - t_start
 
-    kernels = [{"name": "refine_head", "route": "cuda",
-                "source": "ai_based_frame_interpolation_torch/csrc/refine_head.cu",
-                "replaces": "ai_based_frame_interpolation_tpu/ops/pallas/"
-                            "refine_fused.py:417",
-                "launches": launches,
-                "max_abs_err": record["refine_head_max_abs_err"],
-                "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms,
-                "bound_by": bound_by, "library_ms": l_ms}]
+    src = "ai_based_frame_interpolation_torch/csrc/"
+    pallas = "ai_based_frame_interpolation_tpu/ops/pallas/"
+    kernels = []
+    for name, cu, replaces, launches, err, tm in (
+            ("refine_head_w64", "refine_head.cu", "refine_fused.py:417",
+             unet_launches["refine_head"], "refine_head_w64_max_abs_err",
+             "refine_head_w64_1088x1920"),
+            ("refine_head_w16", "refine_head.cu", "refine_fused.py:417",
+             flow_launches["refine_head"], "refine_head_w16_max_abs_err",
+             "refine_head_w16_1088x1920"),
+            ("sample_fused", "sample_fused.cu", "warp_fused.py:183",
+             flow_launches["sample_fused"], "sample_fused_max_abs_err",
+             "sample_fused_1088x1920")):
+        t = timings[tm]
+        kernels.append({"name": name, "route": "cuda", "source": src + cu,
+                        "replaces": pallas + replaces, "launches": launches,
+                        "max_abs_err": record[err], "ms": t["ms"],
+                        "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                        "bound_by": t["bound_by"],
+                        "library_ms": t["library_ms"]})
     print("record " + json.dumps(record), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

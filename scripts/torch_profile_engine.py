@@ -1,12 +1,15 @@
 """Where the port's engine spends device time: a torch.profiler window.
 
-    python3 scripts/torch_profile_engine.py [--batch 8] [--calls 3]
+    python3 scripts/torch_profile_engine.py [--arch unet|flow] [--batch 8]
+                                           [--calls 3]
 
-Runs the production U-Net engine of the PyTorch port (random weights from
-seed 0) on gray 1080p 2x batches on the CUDA card, profiles a few warm
-calls, and prints the device time by kernel name and the device's busy
-share of the window, then the same as one JSON line. Needs a CUDA card;
-fails without one.
+Runs a production engine of the PyTorch port (random weights from seed 0)
+on gray 1080p 2x batches on the CUDA card, profiles a few warm calls, and
+prints the device time by kernel name and the device's busy share of the
+window, then the same as one JSON line. ``--arch unet`` is the production
+U-Net (s2d 4, base 64, head 64); ``--arch flow`` the flow production
+config (base 32, flow_scale 4, head 16, shifts warp, max_flow 16). Needs a
+CUDA card; fails without one.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser()
+    p.add_argument("--arch", choices=("unet", "flow"), default="unet")
     p.add_argument("--batch", type=int, default=8)
     p.add_argument("--calls", type=int, default=3)
     args = p.parse_args(argv)
@@ -41,9 +45,11 @@ def main(argv=None) -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip().splitlines()[0]
-    engine = InterpolationEngine.random_init(ModelConfig(
-        space_to_depth=4, residual=True, refine_width=64,
-        upsample="half_pixel"), seed=0)
+    cfg = ModelConfig(space_to_depth=4, residual=True, refine_width=64,
+                      upsample="half_pixel") if args.arch == "unet" else \
+        ModelConfig(arch="flow", base_width=32, flow_scale=4, refine_width=16,
+                    warp_impl="shifts", max_flow=16)
+    engine = InterpolationEngine.random_init(cfg, seed=0)
     gen = np.random.default_rng(0)
     shape = (args.batch, 1080, 1920, 1)
     f1 = engine._put(gen.integers(0, 256, shape, np.uint8))
@@ -71,7 +77,8 @@ def main(argv=None) -> int:
     rows.sort(key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
     per_call = wall_ms / args.calls
-    lines = [f"[{card}] engine 1080p gray 2x b={args.batch}: {per_call:.3f} ms "
+    lines = [f"[{card}] {args.arch} engine 1080p gray 2x b={args.batch}: "
+             f"{per_call:.3f} ms "
              f"per call (host clock, {args.calls} calls), device busy "
              f"{busy:.3f} ms per call ({100 * busy / per_call:.1f}%)"]
     lines += [f"{ms:10.3f} ms {100 * ms / busy:5.1f}%  x{n:<4d} {key[:90]}"
@@ -79,7 +86,7 @@ def main(argv=None) -> int:
     if not rows:
         lines.append("profiler recorded no device time")
     print("\n".join(lines), flush=True)
-    print(json.dumps({"card": card, "batch": args.batch,
+    print(json.dumps({"card": card, "arch": args.arch, "batch": args.batch,
                       "ms_per_call": per_call, "device_busy_ms": busy,
                       "kernels": rows}), flush=True)
     return 0 if rows else 1

@@ -100,3 +100,22 @@ def test_half_pixel_is_shift_invariant_two_tap(rng):
     want = up1(up1(x, 2), 3)
     got = t_resize.upsample2x_half_pixel(torch.from_numpy(x)).numpy()
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-12)
+
+
+@pytest.mark.parametrize("align", [True, False])
+@pytest.mark.parametrize("in_hw,out_hw", [
+    ((8, 8), (16, 16)),      # the decoder's 2x
+    ((7, 9), (14, 18)),      # odd sizes
+    ((16, 16), (8, 8)),      # downscale
+    ((5, 5), (13, 7)),       # non-integer ratio
+    ((32, 24), (32, 48)),    # one axis only
+])
+def test_resize_bilinear_matches_jax(rng, align, in_hw, out_hw):
+    # the shape pairs of tests/test_resize.py; f32, where the JAX function
+    # is a per-axis lerp (its bf16 route contracts W on the MXU instead)
+    x = rng.standard_normal((2, *in_hw, 3)).astype(np.float32)
+    j = np.asarray(j_resize.resize_bilinear(jnp.asarray(x), out_hw,
+                                            align_corners=align))
+    t = _nhwc(t_resize.resize_bilinear(_nchw(x), out_hw, align_corners=align))
+    assert t.shape == j.shape == (2, *out_hw, 3)
+    np.testing.assert_allclose(t, j, rtol=0, atol=1e-5)

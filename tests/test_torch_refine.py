@@ -21,7 +21,7 @@ import torch
 
 from ai_based_frame_interpolation_torch.models.bridge import flax_to_state_dict
 from ai_based_frame_interpolation_torch.ops.refine import (
-    refine_head, refine_head_reference)
+    pack_head_weights, refine_head, refine_head_reference)
 from ai_based_frame_interpolation_tpu.config import ModelConfig as JConfig
 from ai_based_frame_interpolation_tpu.models import build_model as j_build
 from ai_based_frame_interpolation_tpu.ops.pallas.refine_fused import (
@@ -125,3 +125,40 @@ def test_cpu_wrapper_runs_the_plain_version_without_launching():
             _torch_params(fp), torch.bfloat16)
     assert torch.equal(refine_head(*args), refine_head_reference(*args))
     assert refine_head.launches == before
+
+
+@pytest.mark.parametrize("c,nextra,width", [(1, 2, 64), (1, 4, 16),
+                                            (3, 4, 16)])
+def test_packed_weights_are_the_kernel_layout(c, nextra, width):
+    """The weights a model packs once (``pack_head_weights``) are the
+    layouts the kernel reads: computing the head from them as the kernel
+    indexes them (conv1 over (tap, plane) columns, conv2 as (tap, out, in),
+    the out conv as (in, C)) gives the plain head, in f32."""
+    nplanes = (1 + nextra) * c
+    # conv weights that bf16 holds exactly, so the f32 check is exact too
+    params = {n: {k: v.bfloat16().float() for k, v in p.items()}
+              for n, p in _torch_params(_head_params(nplanes, c, width)).items()}
+    y, planes = _inputs(1, 12, 20, c, nextra)
+    y, planes = torch.from_numpy(y), [torch.from_numpy(p) for p in planes]
+    kw = {k: v.float() for k, v in pack_head_weights(params).items()}
+    assert tuple(kw["w1"].shape) == (width, 9 * nplanes)
+    assert tuple(kw["w2"].shape) == (9, width, width)
+    assert tuple(kw["w3"].shape) == (width, c)
+
+    def taps(z):                      # [B,H,W,K] -> [B,H,W,9,K], SAME pad
+        zp = torch.nn.functional.pad(z, (0, 0, 1, 1, 1, 1))
+        h, w = z.shape[1:3]
+        return torch.stack([zp[:, dy:dy + h, dx:dx + w]
+                            for dy in range(3) for dx in range(3)], 3)
+
+    z = torch.cat([y] + planes, -1)
+    z1 = torch.relu(taps(z).flatten(3) @ kw["w1"].t() + kw["b1"])
+    z2 = torch.relu(torch.einsum("bhwtk,tok->bhwo", taps(z1), kw["w2"])
+                    + kw["b2"])
+    got = y + z2 @ kw["w3"] + kw["b3"]
+    want = refine_head_reference(y, planes, params, torch.float32)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=1e-4)
+    # the CPU wrapper's result does not depend on the packed weights
+    args = (y, planes, params, torch.bfloat16)
+    assert torch.equal(refine_head(*args, packed=pack_head_weights(params)),
+                       refine_head(*args))

@@ -164,6 +164,7 @@ def test_bridge_covers_the_model_and_rejects_unknown_keys():
 
 
 def test_tower_and_flow_are_not_ported_yet():
-    for arch in ("tower", "flow"):
+    # the tower family, and the flow family beyond its single-field path
+    for cfg in (TConfig(arch="tower"), TConfig(arch="flow", flow_bidir=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            t_build(TConfig(arch=arch))
+            t_build(cfg)
