@@ -1,1 +1,2 @@
-"""Tensor ops of the port; ``refine`` holds its CUDA kernel wrapper."""
+"""Tensor ops of the port; ``refine``, ``warp_fused`` and ``ssim_fused``
+hold its CUDA kernel wrappers."""

@@ -9,8 +9,9 @@ Drives the port only (it imports nothing of JAX or of the JAX package):
    prints the build time;
 2. holds each kernel against its plain PyTorch version on the card, at the
    main paths' shapes and a few more: the refinement head at width 64 (the
-   U-Net head) and 16 (the flow head, 5 or 15 planes), and the flow
-   sampler;
+   U-Net head) and 16 (the flow head, 5 or 15 planes), the flow sampler,
+   and the SSIM kernel (the eval path's 8x256x256 and 8x1080x1920, 4K, RGB,
+   7x7, f32 inputs, identical images, two runs bit for bit);
 3. drives the U-Net path once: the full-width production U-Net engine
    (s2d 4, base 64, depth 4, residual, refinement head 64, half-pixel
    decoder, random weights from a seed) on a batch of 8 gray 1080p frame
@@ -23,7 +24,18 @@ Drives the port only (it imports nothing of JAX or of the JAX package):
    max_flow 16) on 8 gray 1080p pairs, checked against the same modules
    composed with the plain sampler and head, then 3 in-betweens, two
    arbitrary times and concurrent requests through the batcher;
-5. times both engines and each kernel with CUDA events.
+5. times both engines and each kernel with CUDA events, the host PNG
+   decode of a 1080p gray file per scanline filter, and the eval path's
+   ``evaluate_model`` calls split into decode, engine and metric time,
+   with the device's busy time in one profiled call;
+6. drives the eval path (run before 5 frees the engines): PNG fixtures
+   written by the port, ``evaluate_model`` with the U-Net engine at
+   256x256 (16 triplets) and 1080x1920 (8 triplets, once with filter 0 as
+   the port writes and once re-encoded with rows cycling through all five
+   filters, as adaptive encoders mix them) and with the flow engine at
+   256x256, counts set to 0 before each run and read after, every
+   per-triplet PSNR and SSIM held against the plain metrics on the same
+   arrays, and the JSON, CSV and markdown reports written and read back.
 
 Any failure raises and exits non-zero. It prints the kernel record as one
 JSON line before the last, and as the last line
@@ -33,11 +45,15 @@ after a ``record {...}`` line with every number it measured.
 
 from __future__ import annotations
 
+import contextlib
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import threading
 import time
+import zlib
 
 import numpy as np
 import torch
@@ -51,6 +67,11 @@ FLOW_PROD = dict(arch="flow", base_width=32, flow_scale=4, refine_width=16,
                  warp_impl="shifts", max_flow=16)
 H100_F32_FLOPS = 67e12         # f32 outside the tensor cores, FLOP/s
 SAMPLER_BOUND = 1e-5           # f32 lerps rounded where the plain version rounds
+# the repo's cross-route SSIM bound (tests/test_pallas_ssim.py): exact
+# window sums in the kernel, 1/7 weights in two passes in the plain version
+SSIM_BOUND = 2e-4
+SSIM_FLOPS_PER_PX = 90         # per valid position: 3 mul, 60 adds, ~25 algebra, 1 sum
+PSNR_BOUND_DB = 1e-4
 
 
 def card() -> str:
@@ -164,6 +185,74 @@ def check_sampler(b, h, w, c, max_flow, ts, dtype=torch.bfloat16) -> float:
     return max(errs)
 
 
+def ssim_inputs(b, h, w, c, seed=0, dtype=torch.uint8):
+    """A structured image batch and a noisy copy on the card (uint8, or f32
+    in [0, 1])."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    y = torch.arange(h, device="cuda", dtype=torch.float32).view(1, h, 1, 1)
+    x = torch.arange(w, device="cuda", dtype=torch.float32).view(1, 1, w, 1)
+    base = 127 + 90 * torch.sin(x / 23.0) * torch.cos(y / 17.0)
+    a = base + 12 * torch.randn((b, h, w, c), generator=gen, device="cuda")
+    bb = a + 10 * torch.randn((b, h, w, c), generator=gen, device="cuda")
+    a, bb = (torch.round(t).clamp(0, 255) for t in (a, bb))
+    if dtype == torch.uint8:
+        return a.to(torch.uint8), bb.to(torch.uint8)
+    return a / 255.0, bb / 255.0
+
+
+def check_ssim(b, h, w, c, dtype=torch.uint8, same=False) -> float:
+    """The ssim_eval kernel vs the plain ssim_eval on the card, within
+    SSIM_BOUND (identical images: 1.0 within 1e-6)."""
+    from ai_based_frame_interpolation_torch.ops.ssim import ssim_eval
+    from ai_based_frame_interpolation_torch.ops.ssim_fused import (
+        ssim_eval_auto, ssim_eval_fused)
+
+    x, y = ssim_inputs(b, h, w, c, seed=h + w + c, dtype=dtype)
+    if same:
+        y = x.clone()
+    dr = 255.0 if dtype == torch.uint8 else 1.0
+    before = ssim_eval_fused.launches
+    got = ssim_eval_auto(x, y, data_range=dr)
+    torch.cuda.synchronize()
+    assert ssim_eval_fused.launches == before + 1, "ssim_eval did not launch"
+    want = ssim_eval(x, y, data_range=dr)
+    err = float((got - want).abs().max())
+    print(f"ssim_eval B={b} {h}x{w} C={c} {dtype}{' identical' if same else ''}"
+          f": kernel {got[:4].tolist()} max|kernel-plain|={err:.3g}",
+          flush=True)
+    assert got.shape == (b,) and got.dtype == torch.float32
+    assert bool(torch.isfinite(got).all())
+    assert err <= SSIM_BOUND, f"ssim_eval disagrees by {err}"
+    if same:
+        assert float((got - 1.0).abs().max()) <= 1e-6, got
+    return err
+
+
+def check_ssim_kernels(record) -> None:
+    """Phase 2's SSIM part: the eval path's shapes (unpadded), 720p and 4K,
+    RGB, the smallest shape JAX tiles (70x16), one window (7x7), f32
+    inputs, identical images, and two runs on the 1080p batch bit for bit."""
+    from ai_based_frame_interpolation_torch.ops.ssim_fused import (
+        ssim_eval_auto)
+
+    errs = {"8x256x256": check_ssim(8, 256, 256, 1),
+            "8x1080x1920": check_ssim(8, 1080, 1920, 1),
+            "1x2160x3840": check_ssim(1, 2160, 3840, 1),
+            "2x720x1280": check_ssim(2, 720, 1280, 1),
+            "2x129x257x3": check_ssim(2, 129, 257, 3),
+            "2x70x16": check_ssim(2, 70, 16, 1),
+            "1x7x7": check_ssim(1, 7, 7, 1),
+            "2x64x96_f32": check_ssim(2, 64, 96, 1, torch.float32),
+            "identical_2x256x256": check_ssim(2, 256, 256, 1, same=True)}
+    x, y = ssim_inputs(8, 1080, 1920, 1, seed=7)
+    first, second = ssim_eval_auto(x, y), ssim_eval_auto(x, y)
+    assert torch.equal(first, second), "ssim_eval is not deterministic"
+    print(f"ssim_eval 8x1080x1920 twice: bit-identical {first.tolist()}",
+          flush=True)
+    record["ssim_eval_errs"] = errs
+    record["ssim_eval_max_abs_err"] = max(errs.values())
+
+
 def frames(n, h, w, seed):
     """Structured gray frames (a moving pattern plus noise), uint8 NHWC."""
     gen = np.random.default_rng(seed)
@@ -177,6 +266,46 @@ def frames(n, h, w, seed):
     f1 = np.clip(np.stack(out1), 0, 255).astype(np.uint8)[..., None]
     f2 = np.clip(np.stack(out2), 0, 255).astype(np.uint8)[..., None]
     return f1, f2
+
+
+def filtered_png(img, kinds) -> bytes:
+    """HWC uint8 -> PNG bytes whose row y is stored under filter
+    ``kinds[y]`` (0 None, 1 Sub, 2 Up, 3 Average, 4 Paeth), the filters
+    applied here with numpy (the card's machine has no OpenCV)."""
+    from ai_based_frame_interpolation_torch.ops.png import png_from_scanlines
+
+    h, w, c = img.shape
+    x = img.reshape(h, w * c).astype(np.int16)
+    left = np.pad(x, ((0, 0), (c, 0)))[:, :-c]
+    up = np.pad(x, ((1, 0), (0, 0)))[:-1]
+    upleft = np.pad(x, ((1, 0), (c, 0)))[:-1, :-c]
+    pa, pb, pc = (np.abs(up - upleft), np.abs(left - upleft),
+                  np.abs(left + up - 2 * upleft))
+    paeth = np.where((pa <= pb) & (pa <= pc), left,
+                     np.where(pb <= pc, up, upleft))
+    preds = np.stack([np.zeros_like(x), left, up, (left + up) >> 1, paeth])
+    kinds = np.asarray(kinds)
+    rows = np.empty((h, w * c + 1), np.uint8)
+    rows[:, 0] = kinds
+    rows[:, 1:] = (x - preds[kinds, np.arange(h)]) & 0xFF
+    return png_from_scanlines(rows, w, c)
+
+
+def refilter_tree(src, dst) -> None:
+    """Copy the fixture at ``src`` to ``dst`` with each PNG re-encoded so
+    that row y has filter y % 5, checking that it decodes to the same
+    pixels."""
+    from ai_based_frame_interpolation_torch.ops.png import decode_png
+
+    for video in sorted(os.listdir(src)):
+        os.makedirs(os.path.join(dst, video))
+        for name in sorted(os.listdir(os.path.join(src, video))):
+            with open(os.path.join(src, video, name), "rb") as f:
+                img = decode_png(f.read())
+            data = filtered_png(img, np.arange(img.shape[0]) % 5)
+            assert np.array_equal(decode_png(data), img), name
+            with open(os.path.join(dst, video, name), "wb") as f:
+                f.write(data)
 
 
 def reference_midpoints(engine, f1, f2) -> torch.Tensor:
@@ -265,22 +394,35 @@ def bound(flops, byts, peak_flops):
         ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def ssim_flops_bytes(b, h, w, c):
+    """FLOPs and device bytes of the SSIM of uint8 images: SSIM_FLOPS_PER_PX
+    per valid position, both images read once, [B] f32 written once."""
+    flops = SSIM_FLOPS_PER_PX * b * c * max(h - 6, 0) * max(w - 6, 0)
+    return flops, 2 * b * h * w * c + 4 * b
+
+
 def reset_counts() -> None:
     from ai_based_frame_interpolation_torch.ops.refine import refine_head
+    from ai_based_frame_interpolation_torch.ops.ssim_fused import (
+        ssim_eval_fused)
     from ai_based_frame_interpolation_torch.ops.warp_fused import (
         sample_fused)
 
     refine_head.launches = 0
     sample_fused.launches = 0
+    ssim_eval_fused.launches = 0
 
 
 def counts() -> dict:
     from ai_based_frame_interpolation_torch.ops.refine import refine_head
+    from ai_based_frame_interpolation_torch.ops.ssim_fused import (
+        ssim_eval_fused)
     from ai_based_frame_interpolation_torch.ops.warp_fused import (
         sample_fused)
 
     return {"refine_head": refine_head.launches,
-            "sample_fused": sample_fused.launches}
+            "sample_fused": sample_fused.launches,
+            "ssim_eval": ssim_eval_fused.launches}
 
 
 def build(record) -> None:
@@ -326,6 +468,7 @@ def check_kernels(record) -> None:
             check_sampler(2, 72, 160, 1, 8, [0.4, 0.6], torch.float32),
             check_sampler(2, 9, 7, 1, 4, [0.4, 0.6])]
     record["sample_fused_max_abs_err"] = max(errs)
+    check_ssim_kernels(record)
 
 
 def serve_requests(engine, seed) -> dict:
@@ -419,7 +562,7 @@ def flow_path(record):
     print(f"flow path: interpolate_batch b=8 1080x1920 -> {out.shape} "
           f"{out.dtype} in {main_s:.3f} s (first call); launches {launches}",
           flush=True)
-    assert launches == {"refine_head": 1, "sample_fused": 1}, \
+    assert launches == {"refine_head": 1, "sample_fused": 1, "ssim_eval": 0}, \
         "the flow path must launch each kernel once per dispatch"
     assert out.shape == (8, 1080, 1920, 1) and out.dtype == np.uint8
     want = reference_flow(engine, f1, f2, [0.5])[:, 0].cpu().numpy()
@@ -449,11 +592,252 @@ def flow_path(record):
         print(f"flow {name}: {got.shape}, launches {n}, max uint8 diff vs "
               f"plain {du}", flush=True)
         assert got.shape == (len(ts), 1080, 1920, 1) and du <= 1
-        assert n == {"refine_head": len(ts), "sample_fused": len(ts)}
+        assert n == {"refine_head": len(ts), "sample_fused": len(ts),
+                     "ssim_eval": 0}
         record["flow_path"][name] = {"launches": n, "max_uint8_diff": du}
     record["flow_requests"] = serve_requests(engine, seed=4)
     assert record["flow_requests"]["launches"]["sample_fused"] > 0
     return engine, launches
+
+
+@contextlib.contextmanager
+def eval_timers(harness, engine, split):
+    """Host clocks around the harness's decode, the engine and the metrics
+    (each returns host arrays, so its device work is inside); yields the
+    (predictions, ground truths) of every metric call, in order."""
+    load, metrics = harness.load_triplet_arrays, harness._batched_metrics
+    interpolate = engine.interpolate_batch
+    batches = []
+
+    def timed(key, fn):
+        def run(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            split[key] += time.perf_counter() - t0
+            return out
+        return run
+
+    timed_metrics = timed("metric_s", metrics)
+
+    def kept_metrics(preds, gts, device):
+        batches.append((preds.copy(), gts.copy()))
+        return timed_metrics(preds, gts, device)
+
+    harness.load_triplet_arrays = timed("decode_s", load)
+    harness._batched_metrics = kept_metrics
+    engine.interpolate_batch = timed("engine_s", interpolate)
+    try:
+        yield batches
+    finally:
+        harness.load_triplet_arrays, harness._batched_metrics = load, metrics
+        del engine.interpolate_batch
+
+
+def device_busy_ms(fn):
+    """(host ms, device busy ms) of one call of ``fn`` under torch.profiler:
+    the device time of every kernel and copy; None if the profiler
+    recorded no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy_us = sum(getattr(ev, "self_device_time_total",
+                          getattr(ev, "self_cuda_time_total", 0))
+                  for ev in prof.key_averages()
+                  if ev.device_type == torch.autograd.DeviceType.CUDA)
+    return wall_ms, (busy_us / 1e3 if busy_us > 0 else None)
+
+
+def run_eval(label, engine, root, hw, expect, out_dir) -> dict:
+    """``evaluate_model(methods=("unet", "linear"), batch_size=8)`` over the
+    fixture at ``root``: launch counts, every per-triplet metric against the
+    plain metrics on the same arrays (ground truths loaded again), the
+    reports, then a second (warm) call split into decode, engine and metric
+    time, and a third under the profiler for the device's busy time."""
+    from ai_based_frame_interpolation_torch.eval import harness, report
+    from ai_based_frame_interpolation_torch.ops.image import load_image
+    from ai_based_frame_interpolation_torch.ops.psnr import psnr
+    from ai_based_frame_interpolation_torch.ops.ssim import ssim_eval
+
+    def evaluate(split):
+        with eval_timers(harness, engine, split) as batches:
+            t0 = time.perf_counter()
+            res = harness.evaluate_model(engine, test_dir=root,
+                                         methods=("unet", "linear"),
+                                         batch_size=8, height=hw[0],
+                                         width=hw[1])
+            split["total_s"] = time.perf_counter() - t0
+        return res, batches
+
+    first = dict(decode_s=0.0, engine_s=0.0, metric_s=0.0)
+    reset_counts()
+    res, batches = evaluate(first)
+    launches = counts()
+    print(f"eval {label}: {res['num_triplets']} triplets, launches "
+          f"{launches} (first call {first['total_s']:.3f} s)", flush=True)
+    assert launches == expect, f"eval {label}: launches {launches} != {expect}"
+
+    methods = res["methods"]
+    assert methods == ["unet", "linear"]
+    taken = {m: 0 for m in methods}
+    dpsnr = dssim = 0.0
+    for k, (pred, gt) in enumerate(batches):
+        m = methods[k % len(methods)]
+        rows = res["results_by_method"][m][taken[m]:taken[m] + len(pred)]
+        taken[m] += len(pred)
+        for row, g in zip(rows, gt, strict=True):
+            again = load_image(os.path.join(row["video_dir"],
+                                            row["ground_truth"]), size=hw)
+            assert np.array_equal(again, g)
+        want_p = psnr(torch.from_numpy(pred), torch.from_numpy(gt)).numpy()
+        want_s = ssim_eval(torch.from_numpy(pred).cuda(),
+                           torch.from_numpy(gt).cuda()).cpu().numpy()
+        dpsnr = max(dpsnr, float(np.abs(
+            np.array([r["psnr"] for r in rows]) - want_p).max()))
+        dssim = max(dssim, float(np.abs(
+            np.array([r["ssim"] for r in rows]) - want_s).max()))
+    assert all(taken[m] == res["num_triplets"] for m in methods)
+    assert dpsnr <= PSNR_BOUND_DB, f"PSNR off the plain psnr by {dpsnr} dB"
+    assert dssim <= SSIM_BOUND, f"SSIM off the plain ssim_eval by {dssim}"
+
+    os.makedirs(out_dir, exist_ok=True)
+    paths = (report.save_json(res, os.path.join(out_dir, "results.json")),
+             report.save_csv_summary(res, os.path.join(out_dir, "summary.csv")),
+             report.write_markdown_report(res, os.path.join(out_dir,
+                                                            "report.md")))
+    with open(paths[0]) as f:
+        assert json.load(f) == json.loads(json.dumps(res))
+    with open(paths[1]) as f:
+        lines = f.read().splitlines()
+    assert lines[0].startswith("method,psnr_avg,psnr_std") and \
+        [ln.split(",")[0] for ln in lines[1:]] == methods
+    with open(paths[2]) as f:
+        assert "## Rankings" in f.read()
+
+    warm = dict(decode_s=0.0, engine_s=0.0, metric_s=0.0)
+    evaluate(warm)
+    profiled_ms, busy_ms = device_busy_ms(
+        lambda: evaluate(dict(decode_s=0.0, engine_s=0.0, metric_s=0.0)))
+    busy = ("no device time recorded" if busy_ms is None else
+            f"{busy_ms:.3f} ms ({100 * busy_ms / profiled_ms:.2f}%)")
+    print(f"eval {label}: profiled call {profiled_ms:.3f} ms, device busy "
+          f"{busy}", flush=True)
+    mm = res["metrics_by_method"]
+    print(f"eval {label}: " + ", ".join(
+        f"{m} PSNR {mm[m]['psnr']['avg']:.4f} dB SSIM {mm[m]['ssim']['avg']:.6f}"
+        for m in methods) + f"; vs plain: max |dPSNR| {dpsnr:.3g} dB, max "
+          f"|dSSIM| {dssim:.3g}; warm call {warm['total_s']:.4f} s (decode "
+          f"{warm['decode_s']:.4f}, engine {warm['engine_s']:.4f}, metrics "
+          f"{warm['metric_s']:.4f})", flush=True)
+    return {"triplets": res["num_triplets"], "launches": launches,
+            "metrics": mm, "max_psnr_diff_db": dpsnr, "max_ssim_diff": dssim,
+            "first_call": first, "warm_call": warm,
+            "profiled_call_ms": profiled_ms, "device_busy_ms": busy_ms}
+
+
+def eval_path(record, unet, flow) -> dict:
+    """The eval path on fixtures the port writes: the U-Net engine at
+    256x256 (2 videos x 10 frames, 16 triplets: 2 chunks of 8) and
+    1080x1920 (1 video x 10 frames, 8 triplets: 1 chunk; then the same
+    frames with rows cycling through all five PNG filters), the flow engine
+    at 256x256. One ssim_eval launch per method and chunk, one refine_head
+    (and for flow one sample_fused) per chunk."""
+    from ai_based_frame_interpolation_torch.data.synthetic import (
+        write_fixture_tree)
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, videos, hw in (("256", 2, (256, 256)),
+                                 ("1080", 1, (1080, 1920))):
+            t0 = time.perf_counter()
+            write_fixture_tree(os.path.join(tmp, name), num_videos=videos,
+                               num_frames=10, height=hw[0], width=hw[1])
+            print(f"fixture {name}: {videos} x 10 frames {hw[0]}x{hw[1]} "
+                  f"written in {time.perf_counter() - t0:.2f} s", flush=True)
+        t0 = time.perf_counter()
+        refilter_tree(os.path.join(tmp, "1080"), os.path.join(tmp, "1080_f"))
+        print(f"fixture 1080 re-encoded with rows cycling through the five "
+              f"filters in {time.perf_counter() - t0:.2f} s; pixels equal",
+              flush=True)
+        out["unet_256"] = run_eval(
+            "U-Net 256x256", unet, os.path.join(tmp, "256"), (256, 256),
+            {"refine_head": 2, "sample_fused": 0, "ssim_eval": 4},
+            os.path.join(tmp, "report_256"))
+        out["unet_1080"] = run_eval(
+            "U-Net 1080x1920", unet, os.path.join(tmp, "1080"), (1080, 1920),
+            {"refine_head": 1, "sample_fused": 0, "ssim_eval": 2},
+            os.path.join(tmp, "report_1080"))
+        out["unet_1080_filters"] = run_eval(
+            "U-Net 1080x1920, all five filters", unet,
+            os.path.join(tmp, "1080_f"), (1080, 1920),
+            {"refine_head": 1, "sample_fused": 0, "ssim_eval": 2},
+            os.path.join(tmp, "report_1080_f"))
+        out["flow_256"] = run_eval(
+            "flow 256x256", flow, os.path.join(tmp, "256"), (256, 256),
+            {"refine_head": 2, "sample_fused": 2, "ssim_eval": 4},
+            os.path.join(tmp, "report_flow_256"))
+    record["eval_path"] = out
+    return out
+
+
+def time_ssim(smi, b, h, w) -> dict:
+    """The SSIM at b x h x w gray uint8: kernel, plain and bound. No single
+    PyTorch call computes skimage's SSIM, so there is no library time."""
+    from ai_based_frame_interpolation_torch.ops.ssim import ssim_eval
+    from ai_based_frame_interpolation_torch.ops.ssim_fused import (
+        ssim_eval_auto)
+
+    x, y = ssim_inputs(b, h, w, 1, seed=11)
+    k_ms = cuda_ms(lambda: ssim_eval_auto(x, y), 20)
+    p_ms = cuda_ms(lambda: ssim_eval(x, y), 5)
+    flops, byts = ssim_flops_bytes(b, h, w, 1)
+    bound_ms, bound_by = bound(flops, byts, H100_F32_FLOPS)
+    print(f"[{smi}] ssim_eval {b}x{h}x{w} gray uint8: kernel {k_ms:.4f} ms, "
+          f"plain {p_ms:.4f} ms, library none (no single PyTorch call "
+          f"computes skimage's SSIM), bound {bound_ms:.4f} ms ({bound_by}: "
+          f"{flops / 1e9:.3f} GFLOP, {byts / 1e6:.2f} MB)", flush=True)
+    return {"ms": k_ms, "plain_ms": p_ms, "library_ms": None,
+            "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops,
+            "bytes": byts}
+
+
+def time_png_decode(smi) -> dict:
+    """Host ms to decode one 1080p gray PNG (a moving-circle fixture frame)
+    with every row under one filter, per filter, and with rows cycling
+    through all five: the best of 5 calls, and the share of it that is
+    zlib's inflate."""
+    from ai_based_frame_interpolation_torch.data.synthetic import (
+        moving_circle_frames)
+    from ai_based_frame_interpolation_torch.ops.png import decode_png
+
+    img = moving_circle_frames(1, 1080, 1920)[0]
+    h = img.shape[0]
+    out = {}
+    for name, kinds in (("none", [0] * h), ("sub", [1] * h), ("up", [2] * h),
+                        ("average", [3] * h), ("paeth", [4] * h),
+                        ("cycle", np.arange(h) % 5)):
+        data = filtered_png(img, kinds)
+        assert np.array_equal(decode_png(data), img), name
+        idat = data[33 + 8:-12 - 4]             # the one IDAT chunk's body
+        best = inflate = float("inf")
+        for _ in range(5):
+            t0 = time.perf_counter()
+            decode_png(data)
+            t1 = time.perf_counter()
+            zlib.decompress(idat)
+            t2 = time.perf_counter()
+            best, inflate = min(best, t1 - t0), min(inflate, t2 - t1)
+        out[name] = {"ms": best * 1e3, "inflate_ms": inflate * 1e3,
+                     "file_bytes": len(data)}
+        print(f"[{smi}] decode_png 1080x1920 gray, filter {name}: "
+              f"{best * 1e3:.3f} ms, of it inflate {inflate * 1e3:.3f} ms "
+              f"({len(data)} bytes; host clock)", flush=True)
+    return out
 
 
 def time_engine(engine, label, smi, sizes) -> dict:
@@ -561,6 +945,7 @@ def main() -> int:
     check_kernels(record)                      # 2.
     unet, unet_launches = unet_path(record)    # 3.
     flow, flow_launches = flow_path(record)    # 4.
+    evals = eval_path(record, unet, flow)      # 6. (before 5 frees them)
 
     # 5. timings (CUDA events, after warm-up)
     timings = time_engine(unet, "unet", smi, ((8, 10), (32, 4)))
@@ -570,26 +955,50 @@ def main() -> int:
     timings["refine_head_w64_1088x1920"] = time_head(smi, 64, 2, 0)
     timings["refine_head_w16_1088x1920"] = time_head(smi, 16, 4, 2)
     timings["sample_fused_1088x1920"] = time_sampler(smi)
+    timings["ssim_eval_8x256x256"] = time_ssim(smi, 8, 256, 256)
+    timings["ssim_eval_8x1080x1920"] = time_ssim(smi, 8, 1080, 1920)
+    timings["ssim_eval_1x2160x3840"] = time_ssim(smi, 1, 2160, 3840)
+    timings["png_decode_1080x1920"] = time_png_decode(smi)
+    for name, run in evals.items():
+        split = run["warm_call"]
+        busy = run["device_busy_ms"]
+        print(f"[{smi}] eval {name} ({run['triplets']} triplets, unet + "
+              f"linear): {split['total_s'] * 1e3:.3f} ms per call, decode "
+              f"{split['decode_s'] * 1e3:.3f}, engine "
+              f"{split['engine_s'] * 1e3:.3f}, metrics "
+              f"{split['metric_s'] * 1e3:.3f} ms; device busy "
+              f"{'not recorded' if busy is None else f'{busy:.3f} ms'} of a "
+              f"profiled call of {run['profiled_call_ms']:.3f} ms",
+              flush=True)
     record["timings"] = timings
     record["seconds"] = time.perf_counter() - t_start
 
     src = "ai_based_frame_interpolation_torch/csrc/"
     pallas = "ai_based_frame_interpolation_tpu/ops/pallas/"
     kernels = []
+    ssim_errs = record["ssim_eval_errs"]
     for name, cu, replaces, launches, err, tm in (
             ("refine_head_w64", "refine_head.cu", "refine_fused.py:417",
-             unet_launches["refine_head"], "refine_head_w64_max_abs_err",
+             unet_launches["refine_head"],
+             record["refine_head_w64_max_abs_err"],
              "refine_head_w64_1088x1920"),
             ("refine_head_w16", "refine_head.cu", "refine_fused.py:417",
-             flow_launches["refine_head"], "refine_head_w16_max_abs_err",
+             flow_launches["refine_head"],
+             record["refine_head_w16_max_abs_err"],
              "refine_head_w16_1088x1920"),
             ("sample_fused", "sample_fused.cu", "warp_fused.py:183",
-             flow_launches["sample_fused"], "sample_fused_max_abs_err",
-             "sample_fused_1088x1920")):
+             flow_launches["sample_fused"], record["sample_fused_max_abs_err"],
+             "sample_fused_1088x1920"),
+            ("ssim_eval_256", "ssim_eval.cu", "ssim_fused.py:63",
+             evals["unet_256"]["launches"]["ssim_eval"],
+             ssim_errs["8x256x256"], "ssim_eval_8x256x256"),
+            ("ssim_eval_1080", "ssim_eval.cu", "ssim_fused.py:169",
+             evals["unet_1080"]["launches"]["ssim_eval"],
+             ssim_errs["8x1080x1920"], "ssim_eval_8x1080x1920")):
         t = timings[tm]
         kernels.append({"name": name, "route": "cuda", "source": src + cu,
                         "replaces": pallas + replaces, "launches": launches,
-                        "max_abs_err": record[err], "ms": t["ms"],
+                        "max_abs_err": err, "ms": t["ms"],
                         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                         "bound_by": t["bound_by"],
                         "library_ms": t["library_ms"]})
