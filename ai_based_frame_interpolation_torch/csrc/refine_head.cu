@@ -13,7 +13,16 @@
 // the TPU kernel's compiled fast path, which rounds the out-conv weights to
 // bf16. The head width WD is a template parameter with two instances: 64
 // (the U-Net production head, 3 or 9 planes) and 16 (the flow production
-// head, 5 or 15 planes).
+// head, 5 or 15 planes). A third instance, DW, is the depthwise head
+// (ModelConfig(refine_depthwise=True), the TPU kernel's refine2_dw and
+// refine2_pw) at WD=64: conv2 becomes
+//
+//   zdw = bf16(bf16(dwconv3x3_f32(z1)) + bdw)      taps bf16, kept in f32
+//   z2  = relu(bf16(bf16(conv1x1(zdw, WD -> WD)) + bpw))
+//
+// the depthwise sum in f32 in the TPU kernel's order (per kx the three ky
+// terms, then the three kx partial sums), the pointwise conv on the tensor
+// cores.
 //
 // What bounds it on the H100: at 1088x1920 with 3 planes, C=1 and WD=64
 // the head does 3,456 + 73,728 + 128 = 77,312 FLOP per pixel, 161.5 GFLOP
@@ -49,6 +58,15 @@
 //   block fits an SM (137 KB of shared memory at 3 planes); at WD=16 a block
 //   needs about 28 KB, so the kernel is compiled for four blocks per SM
 //   (at most 64 registers a thread) and the occupancy query sizes the grid.
+// - The depthwise instance (3 planes, 1088x1920) does 3,456 + 1,152 (f32,
+//   on the CUDA cores) + 8,192 + 128 FLOP per pixel: 24.6 GFLOP on the
+//   tensor cores (24.9 us) and 2.41 GFLOP of f32 (36.0 us at 67 TFLOP/s),
+//   with the dense head's 20.9 MB of traffic. Its conv1 is the dense
+//   head's; the depthwise 3x3 reads z1 from shared memory, one warp per
+//   pixel and two channels per lane (conflict-free 32-bit reads), and
+//   writes zdw to shared memory, where the pointwise conv takes it as the
+//   A operand of one k=WD GEMM per tile row. Without the 9-tap w2 it needs
+//   about 100 KB of shared memory, so two blocks share an SM.
 // - Still far from the bound: shared-memory bandwidth feeds mma.sync at
 //   about 0.9 MB of fragment reads per tile, and the phases of a tile do
 //   not overlap. wgmma and TMA are the next step.
@@ -59,7 +77,9 @@
 // would); concat channel p is (k = p / C, c = p % C) with k = 0 the
 // prediction. w1 [WD][9*nplanes] bf16 (out, then tap-major, plane-minor),
 // w2 [9][WD][WD] bf16 (tap, out, in), b1/b2 [WD] bf16, w3 [WD][C] f32,
-// b3 [C] f32. Output [B,H,W,C] bf16.
+// b3 [C] f32. Output [B,H,W,C] bf16. The depthwise instance takes wpw
+// [WD][WD] bf16 (out, in) and bpw in place of w2 and b2, and wdw [9][WD]
+// f32 (tap, channel) and bdw [WD] bf16.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -121,8 +141,9 @@ __device__ __forceinline__ uint32_t pack_raw(uint16_t lo, uint16_t hi) {
 }
 
 struct Smem {
-  __nv_bfloat16* w2;    // [9*WD][RS]   conv2 weights, (tap, out) rows
+  __nv_bfloat16* w2;    // [9*WD][RS]   conv2 weights, (tap, out) rows (DW: wpw)
   __nv_bfloat16* z1;    // [Z1_N][RS]   conv1 activation, pixel rows
+  __nv_bfloat16* zdw;   // [TH*TW][RS]  DW: depthwise output, pixel rows
   __nv_bfloat16* w1;    // [WD][k1s]    conv1 weights, out rows
   uint16_t* in;         // [nplanes][HALO_N] input halo (bf16 bits)
   int* koff;            // [k1p]        halo offset of each conv1 K index
@@ -132,28 +153,40 @@ __host__ __device__ inline int k1_padded(int nplanes) {
   return (9 * nplanes + 15) / 16 * 16;
 }
 
-template <int WD>
+// rows of conv2's weights in shared memory (the 1x1 wpw for DW), and of
+// the depthwise output
+template <int WD, bool DW>
+__host__ __device__ constexpr int w2_rows() { return DW ? WD : 9 * WD; }
+template <bool DW>
+__host__ __device__ constexpr int zdw_rows() { return DW ? TH * TW : 0; }
+
+template <int WD, bool DW>
 __host__ __device__ inline size_t smem_bytes(int nplanes) {
   constexpr int RS = WD + 8;           // padded row stride (bf16) of z1/w2
   const int k1p = k1_padded(nplanes);
-  return sizeof(__nv_bfloat16) * (9 * WD * RS + Z1_N * RS + WD * (k1p + 8)) +
+  return sizeof(__nv_bfloat16) * ((w2_rows<WD, DW>() + Z1_N + zdw_rows<DW>()) * RS +
+                                  WD * (k1p + 8)) +
          sizeof(uint16_t) * nplanes * HALO_N + sizeof(int) * k1p;
 }
 
-// compiled for 1 block per SM at WD=64 (shared memory allows no more) and
-// 4 at WD=16, which caps the instance at 64 registers a thread
-template <int WD>
-__global__ void __launch_bounds__(THREADS, WD == 64 ? 1 : 4)
+// compiled for 1 block per SM at WD=64 (shared memory allows no more), 2
+// for the depthwise head and 4 at WD=16, which caps those instances at 128
+// and 64 registers a thread
+template <int WD, bool DW>
+__global__ void __launch_bounds__(THREADS, DW ? 2 : (WD == 64 ? 1 : 4))
 refine_head_kernel(const float* __restrict__ pred, Planes planes,
                    int nplanes, int C,
                    const __nv_bfloat16* __restrict__ w1,
                    const __nv_bfloat16* __restrict__ b1,
                    const __nv_bfloat16* __restrict__ w2,
                    const __nv_bfloat16* __restrict__ b2,
+                   const float* __restrict__ wdw,
+                   const __nv_bfloat16* __restrict__ bdw,
                    const float* __restrict__ w3,
                    const float* __restrict__ b3,
                    __nv_bfloat16* __restrict__ out, int B, int H, int W) {
   static_assert(WD % 16 == 0, "two n8 tiles per ldmatrix, k16 steps");
+  static_assert(!DW || WD == 64, "one channel pair per lane in the depthwise step");
   constexpr int RS = WD + 8;           // padded row stride (bf16) of z1/w2
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int k1 = 9 * nplanes;
@@ -161,8 +194,9 @@ refine_head_kernel(const float* __restrict__ pred, Planes planes,
   const int k1s = k1p + 8;             // padded conv1 weight row (bf16)
   Smem s;
   s.w2 = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  s.z1 = s.w2 + 9 * WD * RS;
-  s.w1 = s.z1 + Z1_N * RS;
+  s.z1 = s.w2 + w2_rows<WD, DW>() * RS;
+  s.zdw = s.z1 + Z1_N * RS;
+  s.w1 = s.zdw + zdw_rows<DW>() * RS;
   s.in = reinterpret_cast<uint16_t*>(s.w1 + WD * k1s);
   s.koff = reinterpret_cast<int*>(s.in + nplanes * HALO_N);
 
@@ -173,7 +207,7 @@ refine_head_kernel(const float* __restrict__ pred, Planes planes,
   const int t = lane % 4;              // mma thread in group
 
   // weights, once per block: w2 rows of WD in 16-byte chunks
-  for (int idx = tid; idx < 9 * WD * (WD / 8); idx += THREADS) {
+  for (int idx = tid; idx < w2_rows<WD, DW>() * (WD / 8); idx += THREADS) {
     const int row = idx / (WD / 8);
     const int ch = idx % (WD / 8);
     *reinterpret_cast<uint4*>(s.w2 + row * RS + ch * 8) =
@@ -191,6 +225,18 @@ refine_head_kernel(const float* __restrict__ pred, Planes planes,
       off = (k % nplanes) * HALO_N + (tap / 3) * HALO_W + tap % 3;
     }
     s.koff[k] = off;
+  }
+  // DW: this lane's channel pair's depthwise taps and bias
+  float wd[9][2] = {};
+  float bd[2] = {0.f, 0.f};
+  if (DW) {
+#pragma unroll
+    for (int tap = 0; tap < 9; ++tap) {
+      wd[tap][0] = wdw[tap * WD + 2 * lane];
+      wd[tap][1] = wdw[tap * WD + 2 * lane + 1];
+    }
+    bd[0] = __bfloat162float(bdw[2 * lane]);
+    bd[1] = __bfloat162float(bdw[2 * lane + 1]);
   }
 
   const int tiles_x = (W + TW - 1) / TW;
@@ -282,11 +328,40 @@ refine_head_kernel(const float* __restrict__ pred, Planes planes,
     }
     __syncthreads();
 
-    // 3. conv2: warp -> tile rows 2*warp and 2*warp+1, all 64 channels
+    // 3. DW: the depthwise 3x3 in f32, one warp per pixel, channels
+    // 2*lane and 2*lane+1, into zdw
+    if (DW) {
+      for (int p = warp; p < TH * TW; p += WARPS) {
+        const int ty = p / TW;
+        const int tx = p % TW;
+        float acc[2];
+#pragma unroll
+        for (int kx = 0; kx < 3; ++kx) {
+          float sum[2];
+#pragma unroll
+          for (int ky = 0; ky < 3; ++ky) {
+            const float2 z = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+                s.z1 + ((ty + ky) * Z1_W + tx + kx) * RS + 2 * lane));
+            const float t0 = __fmul_rn(wd[ky * 3 + kx][0], z.x);
+            const float t1 = __fmul_rn(wd[ky * 3 + kx][1], z.y);
+            sum[0] = ky ? __fadd_rn(sum[0], t0) : t0;
+            sum[1] = ky ? __fadd_rn(sum[1], t1) : t1;
+          }
+          acc[0] = kx ? __fadd_rn(acc[0], sum[0]) : sum[0];
+          acc[1] = kx ? __fadd_rn(acc[1], sum[1]) : sum[1];
+        }
+        *reinterpret_cast<uint32_t*>(s.zdw + p * RS + 2 * lane) =
+            pack_bf16(round_bf16(acc[0]) + bd[0], round_bf16(acc[1]) + bd[1]);
+      }
+      __syncthreads();
+    }
+
+    // 4. conv2 (DW: the pointwise conv over zdw): warp -> tile rows 2*warp
+    // and 2*warp+1, all WD channels
     float acc[2][WD / 8][4] = {};
     const int arow = lane % 16;        // ldmatrix row this lane addresses
     const int acol = (lane / 16) * 8;
-    for (int tap = 0; tap < 9; ++tap) {
+    for (int tap = 0; tap < (DW ? 1 : 9); ++tap) {
       const int ky = tap / 3;
       const int kx = tap % 3;
 #pragma unroll
@@ -295,7 +370,11 @@ refine_head_kernel(const float* __restrict__ pred, Planes planes,
 #pragma unroll
         for (int mi = 0; mi < 2; ++mi) {
           const int ty = 2 * warp + mi;
-          ldmatrix_x4(a[mi], s.z1 + ((ty + ky) * Z1_W + arow + kx) * RS + k0 + acol);
+          if (DW) {
+            ldmatrix_x4(a[mi], s.zdw + (ty * TW + arow) * RS + k0 + acol);
+          } else {
+            ldmatrix_x4(a[mi], s.z1 + ((ty + ky) * Z1_W + arow + kx) * RS + k0 + acol);
+          }
         }
 #pragma unroll
         for (int j = 0; j < WD / 8; j += 2) {
@@ -312,7 +391,7 @@ refine_head_kernel(const float* __restrict__ pred, Planes planes,
       }
     }
 
-    // 4. bias + ReLU in bf16, the f32 out conv (quad reduction over the
+    // 5. bias + ReLU in bf16, the f32 out conv (quad reduction over the
     // 64 channels), residual; lane t == 0 writes pixels g and g+8
 #pragma unroll
     for (int mi = 0; mi < 2; ++mi) {
@@ -351,14 +430,14 @@ refine_head_kernel(const float* __restrict__ pred, Planes planes,
   }
 }
 
-template <int WD>
+template <int WD, bool DW>
 int launch(const float* pred, const Planes& planes, int nplanes, int C,
            const void* w1, const void* b1, const void* w2, const void* b2,
-           const void* w3, const void* b3, void* out, int B, int H, int W,
-           cudaStream_t stream) {
-  const size_t smem = smem_bytes<WD>(nplanes);
+           const void* wdw, const void* bdw, const void* w3, const void* b3,
+           void* out, int B, int H, int W, cudaStream_t stream) {
+  const size_t smem = smem_bytes<WD, DW>(nplanes);
   cudaError_t err = cudaFuncSetAttribute(
-      refine_head_kernel<WD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      refine_head_kernel<WD, DW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   int device = 0, sms = 0, per_sm = 0;
@@ -368,7 +447,7 @@ int launch(const float* pred, const Planes& planes, int nplanes, int C,
     return static_cast<int>(err);
   }
   if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, refine_head_kernel<WD>, THREADS, smem)) != cudaSuccess) {
+           &per_sm, refine_head_kernel<WD, DW>, THREADS, smem)) != cudaSuccess) {
     return static_cast<int>(err);
   }
   if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
@@ -377,10 +456,11 @@ int launch(const float* pred, const Planes& planes, int nplanes, int C,
   const int grid = static_cast<int>(ntiles < static_cast<long long>(sms) * per_sm
                                         ? ntiles
                                         : static_cast<long long>(sms) * per_sm);
-  refine_head_kernel<WD><<<grid, THREADS, smem, stream>>>(
+  refine_head_kernel<WD, DW><<<grid, THREADS, smem, stream>>>(
       pred, planes, nplanes, C,
       static_cast<const __nv_bfloat16*>(w1), static_cast<const __nv_bfloat16*>(b1),
       static_cast<const __nv_bfloat16*>(w2), static_cast<const __nv_bfloat16*>(b2),
+      static_cast<const float*>(wdw), static_cast<const __nv_bfloat16*>(bdw),
       static_cast<const float*>(w3), static_cast<const float*>(b3),
       static_cast<__nv_bfloat16*>(out), B, H, W);
   return static_cast<int>(cudaGetLastError());
@@ -390,15 +470,20 @@ int launch(const float* pred, const Planes& planes, int nplanes, int C,
 
 // Returns 0 or a cudaError_t. Launches on `stream`, allocates nothing.
 // plane_f32: bit k set when plane k (0-based, after the prediction) is f32.
+// wdw != nullptr selects the depthwise head (width 64), with wpw and bpw in
+// the w2 and b2 slots.
 extern "C" int refine_head_bf16(const void* pred, const void* plane0,
                                 const void* plane1, const void* plane2,
                                 const void* plane3, int plane_f32, int nplanes,
                                 int C, const void* w1, const void* b1,
-                                const void* w2, const void* b2, const void* w3,
-                                const void* b3, void* out, int B, int H, int W,
-                                int width, void* stream) {
+                                const void* w2, const void* b2, const void* wdw,
+                                const void* bdw, const void* w3, const void* b3,
+                                void* out, int B, int H, int W, int width,
+                                void* stream) {
   const int nextra = C > 0 ? nplanes / C - 1 : 0;
-  if ((width != 64 && width != 16) || C < 1 || C > MAX_C || nplanes % C != 0 ||
+  const bool dw = wdw != nullptr;
+  if ((width != 64 && width != 16) || (dw && (width != 64 || bdw == nullptr)) || C < 1 ||
+      C > MAX_C || nplanes % C != 0 ||
       nextra < 1 || nextra > MAX_EXTRA || nplanes > MAX_NPLANES || B < 1 ||
       H < 1 || W < 1 || (plane_f32 >> nextra) != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -412,8 +497,14 @@ extern "C" int refine_head_bf16(const void* pred, const void* plane0,
   }
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* p = static_cast<const float*>(pred);
-  if (width == 64) {
-    return launch<64>(p, planes, nplanes, C, w1, b1, w2, b2, w3, b3, out, B, H, W, st);
+  if (dw) {
+    return launch<64, true>(p, planes, nplanes, C, w1, b1, w2, b2, wdw, bdw, w3, b3, out, B,
+                            H, W, st);
   }
-  return launch<16>(p, planes, nplanes, C, w1, b1, w2, b2, w3, b3, out, B, H, W, st);
+  if (width == 64) {
+    return launch<64, false>(p, planes, nplanes, C, w1, b1, w2, b2, wdw, bdw, w3, b3, out, B,
+                             H, W, st);
+  }
+  return launch<16, false>(p, planes, nplanes, C, w1, b1, w2, b2, wdw, bdw, w3, b3, out, B, H,
+                           W, st);
 }

@@ -19,12 +19,15 @@ import numpy as np
 import torch
 
 from ..config import ModelConfig
-from ..models import build_model
+from ..models import build_model, core_t
 from ..models.bridge import flax_to_state_dict
 from ..models.unet import fold_batchnorm
 from ..ops import warp_fused
 from ..ops.image import denormalize_to_uint8, normalize_uint8
 from ..ops.resize import crop_to, pad_to_multiple
+
+
+_CORE_IMPLS = ("xla", "auto", "pallas")
 
 
 def resolve_device(device=None) -> torch.device:
@@ -72,12 +75,27 @@ class InterpolationEngine:
     weights (``models.unet.fold_batchnorm``). ``device=None`` means the
     CUDA card and raises without one. ``model`` is a module of either
     ported family (``models.build_model``).
+
+    ``core_impl`` selects the U-Net core, as in the JAX engine: ``"xla"``
+    (the default) runs the model's own forward (cuDNN convs); ``"auto"``
+    runs the option core (``models/core_t.py``: the outer DoubleConv blocks
+    on the ``double_conv`` kernels) on the card where ``core_t.eligible``
+    holds; ``"pallas"`` forces it, raises where it does not apply, and on
+    the CPU runs the kernels' plain versions. Both need folded weights and
+    a full-resolution head, and are followed by the head. ``"auto"`` copies
+    the JAX engine's choice, which a TPU measurement made: on the H100 the
+    option core is slower than the default route (11-12% at b8 1080p,
+    about 3% at b32; ``PERF.md``), so ``"auto"`` is not a speed setting on
+    the card.
     """
 
     def __init__(self, model: torch.nn.Module,
                  state: Optional[Mapping[str, torch.Tensor]] = None,
                  compute_dtype=torch.bfloat16, fold: bool = True,
-                 device=None):
+                 device=None, core_impl: str = "xla"):
+        if core_impl not in _CORE_IMPLS:
+            raise ValueError(f"core_impl must be one of {_CORE_IMPLS}; got "
+                             f"{core_impl!r}")
         self.device = resolve_device(device)
         cfg = model.cfg
         state = dict(state if state is not None else model.state_dict())
@@ -91,6 +109,9 @@ class InterpolationEngine:
         self.model.pack_head()          # the head kernel's weight layouts
         self.cfg: ModelConfig = cfg
         self.compute_dtype = compute_dtype
+        self.core_impl = core_impl
+        if core_impl != "xla" and self._core_applies():
+            self.model.pack_core()      # the core kernels' weight layouts
         # Cap on the batch one dispatch sees (None = off); larger batches
         # run as sequential chunks, concatenated on the device.
         self.max_dispatch_batch: Optional[int] = None
@@ -110,28 +131,60 @@ class InterpolationEngine:
     @classmethod
     def random_init(cls, cfg: Optional[ModelConfig] = None, seed: int = 0,
                     compute_dtype=torch.bfloat16, fold: bool = True,
-                    device=None) -> "InterpolationEngine":
+                    device=None, core_impl: str = "xla"
+                    ) -> "InterpolationEngine":
         """Engine with random weights from ``seed`` (plumbing and speed
         runs). The numbers differ from JAX's for the same seed."""
         cfg = cfg or ModelConfig()
         model = build_model(cfg, compute_dtype)
         _init_weights(model, torch.Generator().manual_seed(seed))
-        return cls(model, None, compute_dtype, fold=fold, device=device)
+        return cls(model, None, compute_dtype, fold=fold, device=device,
+                   core_impl=core_impl)
 
     @classmethod
     def from_flax_variables(cls, variables: Mapping, cfg: ModelConfig,
                             compute_dtype=torch.bfloat16, fold: bool = True,
-                            device=None) -> "InterpolationEngine":
+                            device=None, core_impl: str = "xla"
+                            ) -> "InterpolationEngine":
         """Engine over a Flax variables tree given as numpy arrays
         (``models/bridge.py``)."""
         folded = not variables.get("batch_stats")
         model = build_model(cfg, compute_dtype, folded=folded)
         return cls(model, flax_to_state_dict(variables), compute_dtype,
-                   fold=fold, device=device)
+                   fold=fold, device=device, core_impl=core_impl)
 
     # -- the pair function --------------------------------------------------
 
+    def _core_applies(self) -> bool:
+        """The option core's model conditions: the U-Net family, folded
+        weights, a full-resolution head."""
+        model = self.model
+        return (self.cfg.arch == "unet" and model.folded and model.has_head
+                and self.cfg.refine_factor == 1)
+
+    def _core_t_ok(self, x: torch.Tensor) -> bool:
+        """Whether ``_forward`` takes the option core for padded NCHW
+        frames ``x``: never under ``"xla"``; under ``"auto"`` on the card
+        where ``core_t.eligible`` holds; always under ``"pallas"``, which
+        raises where the core does not apply."""
+        if self.core_impl == "xla":
+            return False
+        ok = self._core_applies() and core_t.eligible(
+            self.cfg, int(x.shape[-2]), int(x.shape[-1]))
+        if self.core_impl == "auto":
+            return ok and x.is_cuda
+        if not ok:
+            raise ValueError(
+                f"core_impl='pallas': the option core does not take this "
+                f"model and shape ({self.cfg}, frames {tuple(x.shape)}; it "
+                "needs core_t.eligible, folded weights and a head at "
+                "refine_factor=1)")
+        return True
+
     def _forward(self, model, x1, x2):
+        if self._core_t_ok(x1):
+            y = core_t.forward_pre_refine(model, x1, x2)
+            return model.refine(y, x1, x2).to(self.compute_dtype)
         return model(x1, x2).to(self.compute_dtype)
 
     def _pair_fn(self, n_out: int, depth: int):

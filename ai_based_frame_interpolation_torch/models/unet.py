@@ -212,15 +212,23 @@ class FrameInterpolationUNet(nn.Module):
                 self.refine2 = nn.Conv2d(w, w, 3, padding=1)
             self.refine_out = nn.Conv2d(w, cg, 1)
         self.packed_head: Optional[dict] = None
+        self.packed_core: Optional[dict] = None
 
     def pack_head(self) -> None:
         """Build the head kernel's weight layouts once, from the weights as
         loaded and placed now (``ops.refine.pack_head_weights``); the
         engine calls it after loading. Forward passes them to every head
         call, so it must be called again after the weights change."""
-        dense = self.has_head and not self.cfg.refine_depthwise
         self.packed_head = pack_head_weights(self.head_params()) \
-            if dense else None
+            if self.has_head else None
+
+    def pack_core(self) -> None:
+        """Build the core kernels' weight layouts once, as :meth:`pack_head`
+        does for the head (``models.core_t.pack_core_weights``); the engine
+        calls it after loading when it routes to the option core."""
+        from .core_t import pack_core_weights
+
+        self.packed_core = pack_core_weights(self)
 
     def head_params(self) -> dict:
         """The refinement head's weights, ``{name: {"weight", "bias"}}``."""
@@ -251,22 +259,25 @@ class FrameInterpolationUNet(nn.Module):
             y = y + 0.5 * (f1 + f2).to(y.dtype)
         if not self.has_head or skip_refine:
             return depth_to_space(y, r)
-        if cfg.refine_depthwise and y.is_cuda:
-            raise NotImplementedError(
-                "the depthwise refinement head has no CUDA kernel yet "
-                "(ROADMAP Queue B item 1, depthwise variant)")
         g = cfg.refine_factor
-        yg, p1, p2 = (depth_to_space(a, r // g) for a in (y, f1, f2))
-        planes = (_nhwc(p1), _nhwc(p2))
         # the full-resolution head is the main path's kernel; a head at a
         # coarser factor has none (nor has it in the JAX package)
         if g == 1:
-            out = refine_head(_nhwc(yg), planes, self.head_params(), cdt,
-                              self.packed_head)
-        else:
-            out = refine_head_reference(_nhwc(yg), planes,
-                                        self.head_params(), cdt)
+            return self.refine(depth_to_space(y, r), frame1, frame2)
+        yg, p1, p2 = (depth_to_space(a, r // g) for a in (y, f1, f2))
+        out = refine_head_reference(_nhwc(yg), (_nhwc(p1), _nhwc(p2)),
+                                    self.head_params(), cdt)
         return depth_to_space(out.permute(0, 3, 1, 2), g)
+
+    def refine(self, pred: torch.Tensor, frame1: torch.Tensor,
+               frame2: torch.Tensor) -> torch.Tensor:
+        """The full-resolution head (``refine_factor=1``, dense or
+        depthwise) on the f32 pre-refine prediction ``[B,C,H,W]``, with the
+        frames as its planes; NCHW out in the compute dtype."""
+        out = refine_head(_nhwc(pred), (_nhwc(frame1), _nhwc(frame2)),
+                          self.head_params(), self.compute_dtype,
+                          self.packed_head)
+        return out.permute(0, 3, 1, 2)
 
 
 def count_parameters(model: nn.Module) -> int:

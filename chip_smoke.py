@@ -9,22 +9,32 @@ Drives the port only (it imports nothing of JAX or of the JAX package):
    prints the build time;
 2. holds each kernel against its plain PyTorch version on the card, at the
    main paths' shapes and a few more: the refinement head at width 64 (the
-   U-Net head) and 16 (the flow head, 5 or 15 planes), the flow sampler,
-   and the SSIM kernel (the eval path's 8x256x256 and 8x1080x1920, 4K, RGB,
-   7x7, f32 inputs, identical images, two runs bit for bit);
+   U-Net head) and 16 (the flow head, 5 or 15 planes), the depthwise head
+   (1088x1920 gray, small RGB), the flow sampler, the SSIM kernel (the eval
+   path's 8x256x256 and 8x1080x1920, 4K, RGB, 7x7, f32 inputs, identical
+   images, two runs bit for bit), and the option core's double conv (inc,
+   down1, down2 at b8 1080p) and up block (up3, up4), with heights and
+   widths off the tile, a 7-row image, uneven channel counts and the
+   align-corners composition;
 3. drives the U-Net path once: the full-width production U-Net engine
    (s2d 4, base 64, depth 4, residual, refinement head 64, half-pixel
    decoder, random weights from a seed) on a batch of 8 gray 1080p frame
    pairs, with every kernel's launch count set to 0 just before and read
    just after, and checks the output against the same port modules composed
    with the plain head; then answers concurrent requests through the port's
-   batcher;
+   batcher; then the same two ways with the option core
+   (``core_impl="pallas"``: 3 double-conv, 2 up-block and 1 head launch per
+   dispatch, also within 1 LSB of the default route on the same weights),
+   the option core again with the align-corners decoder (5 double-conv
+   launches, the upsample composed) against its own default route, and
+   with the depthwise head (``refine_depthwise=True``);
 4. drives the flow path the same way: the full-width flow production engine
    (base 32, depth 4, flow_scale 4, refinement head 16, shifts warp,
    max_flow 16) on 8 gray 1080p pairs, checked against the same modules
    composed with the plain sampler and head, then 3 in-betweens, two
    arbitrary times and concurrent requests through the batcher;
-5. times both engines and each kernel with CUDA events, the host PNG
+5. times the engines (U-Net on the default route, the option core and the
+   depthwise head; flow) and each kernel with CUDA events, the host PNG
    decode of a 1080p gray file per scanline filter, and the eval path's
    ``evaluate_model`` calls split into decode, engine and metric time,
    with the device's busy time in one profiled call;
@@ -96,21 +106,27 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def head_inputs(b, h, w, c, nextra, width=64, seed=0, nf32=0):
+def head_inputs(b, h, w, c, nextra, width=64, seed=0, nf32=0,
+                depthwise=False):
     """Random head inputs and weights (PyTorch layouts) on the card; the
     first ``nf32`` planes are f32 (the flow sampler's warped frames), the
-    rest bf16."""
+    rest bf16; ``depthwise``: conv2 as a depthwise 3x3 and a 1x1."""
     gen = torch.Generator().manual_seed(seed)
     nplanes = (1 + nextra) * c
 
-    def conv(cin, cout, k):
-        wt = torch.randn(cout, cin, k, k, generator=gen) / (k * k * cin) ** 0.5
+    def conv(cin, cout, k, groups=1):
+        wt = torch.randn(cout, cin // groups, k, k, generator=gen) / (
+            k * k * cin // groups) ** 0.5
         return {"weight": wt.cuda(), "bias": (0.1 * torch.randn(
             cout, generator=gen)).cuda()}
 
     params = {"refine1": conv(nplanes, width, 3),
-              "refine2": conv(width, width, 3),
               "refine_out": conv(width, c, 1)}
+    if depthwise:
+        params["refine2_dw"] = conv(width, width, 3, groups=width)
+        params["refine2_pw"] = conv(width, width, 1)
+    else:
+        params["refine2"] = conv(width, width, 3)
     y = (torch.rand(b, h, w, c, generator=gen) * 2 - 1).cuda()
     planes = [(torch.rand(b, h, w, c, generator=gen) * 2 - 1).to(
         torch.float32 if k < nf32 else torch.bfloat16).cuda()
@@ -118,7 +134,7 @@ def head_inputs(b, h, w, c, nextra, width=64, seed=0, nf32=0):
     return y, planes, params
 
 
-def check_kernel(shape, width=64, nf32=0) -> float:
+def check_kernel(shape, width=64, nf32=0, depthwise=False) -> float:
     """The refine_head kernel vs its plain version on the card: within
     FLOAT_BOUND (both round each conv to bf16 around its bias; f32 sums in
     another order can flip a value on a rounding boundary by one ulp, which
@@ -129,7 +145,8 @@ def check_kernel(shape, width=64, nf32=0) -> float:
         refine_head, refine_head_reference)
 
     b, h, w, c, nextra = shape
-    y, planes, params = head_inputs(b, h, w, c, nextra, width, nf32=nf32)
+    y, planes, params = head_inputs(b, h, w, c, nextra, width, nf32=nf32,
+                                    depthwise=depthwise)
     before = refine_head.launches
     got = refine_head(y, planes, params)
     torch.cuda.synchronize()
@@ -137,7 +154,8 @@ def check_kernel(shape, width=64, nf32=0) -> float:
     want = refine_head_reference(y, planes, params)
     err = float((got.float() - want.float()).abs().max())
     du = (denormalize_to_uint8(got).int() - denormalize_to_uint8(want).int()).abs()
-    print(f"refine_head w{width} B={b} {h}x{w} C={c} planes="
+    print(f"refine_head{' depthwise' if depthwise else ''} w{width} B={b} "
+          f"{h}x{w} C={c} planes="
           f"{(1 + nextra) * c} ({nf32 * c} f32): "
           f"max|kernel-plain|={err:.6g} uint8 differing={float((du > 0).float().mean()):.6g}"
           f" max uint8 diff={int(du.max())}", flush=True)
@@ -253,6 +271,90 @@ def check_ssim_kernels(record) -> None:
     record["ssim_eval_max_abs_err"] = max(errs.values())
 
 
+def dconv_inputs(b, h, w, c0, c1, mid, cout, seed=0):
+    """Random double-conv (c1 == 0) or up-block inputs and weights on the
+    card: bf16 channels-last activations uniform in [-1, 1], conv weights
+    scaled by 1/sqrt(fan_in) so the outputs stay of order 1, biases 0.1."""
+    gen = torch.Generator().manual_seed(seed)
+    x = (torch.rand(b, h, w, c0, generator=gen) * 2 - 1).to(
+        torch.bfloat16).cuda()
+    low = None if not c1 else (torch.rand(
+        b, h // 2, w // 2, c1, generator=gen) * 2 - 1).to(torch.bfloat16).cuda()
+    wts = []
+    for cin, co in ((c0 + c1, mid), (mid, cout)):
+        wts.append((torch.randn(co, cin, 3, 3, generator=gen)
+                    / (9 * cin) ** 0.5).cuda())
+        wts.append((0.1 * torch.randn(co, generator=gen)).cuda())
+    return x, low, wts
+
+
+def check_dconv(b, h, w, c0, c1, mid, cout, align_corners=False) -> float:
+    """The double_conv kernel (c1 == 0) or the up block (c1 > 0) vs its
+    plain version on the card, within FLOAT_BOUND (the outputs stay under
+    4 in magnitude, so 2 bf16 ulp). ``align_corners``: the option core's
+    align-corners composition, the up block as ``_upsample2x_t`` and the
+    double-conv kernel on the concat."""
+    from ai_based_frame_interpolation_torch.models.core_t import _upsample2x_t
+    from ai_based_frame_interpolation_torch.ops.dconv_fused import (
+        double_conv_fused, double_conv_reference, pack_dconv_weights,
+        up_double_conv_fused, up_double_conv_reference)
+
+    x, low, wts = dconv_inputs(b, h, w, c0, c1, mid, cout, seed=h + w + c0)
+    up_block = c1 and not align_corners
+    packed = pack_dconv_weights(*wts, split=c0 if up_block else None)
+    before = (double_conv_fused.launches, up_double_conv_fused.launches)
+    if up_block:
+        got = up_double_conv_fused(x, low, *wts, packed=packed)
+        want = up_double_conv_reference(x, low, *wts)
+        expect = (before[0], before[1] + 1)
+    else:
+        if align_corners:
+            x = torch.cat([x, _upsample2x_t(low)], -1)
+        got = double_conv_fused(x, *wts, packed=packed)
+        want = double_conv_reference(x, *wts)
+        expect = (before[0] + 1, before[1])
+    torch.cuda.synchronize()
+    assert (double_conv_fused.launches, up_double_conv_fused.launches) == \
+        expect, "the double_conv kernel did not launch"
+    err = float((got.float() - want.float()).abs().max())
+    print(f"{'up_' if up_block else ''}double_conv"
+          f"{' align-corners composition' if align_corners else ''} B={b} "
+          f"{h}x{w} {c0}+{c1}->{mid}->{cout}: max|kernel-plain|={err:.6g} "
+          f"differing {float((got != want).float().mean()):.6g} max|plain|="
+          f"{float(want.float().abs().max()):.4g}", flush=True)
+    assert got.shape == want.shape == (b, h, w, cout)
+    assert got.dtype == torch.bfloat16 and bool(torch.isfinite(got.float()).all())
+    assert err <= FLOAT_BOUND, f"double_conv kernel disagrees by {err}"
+    return err
+
+
+# the option core's levels at b8 1080p (s2d 4, base 64): (B, H, W, skip or
+# input channels, low channels, mid, out)
+CORE_LEVELS = {"inc": (8, 272, 480, 32, 0, 64, 64),
+               "down1": (8, 136, 240, 64, 0, 128, 128),
+               "down2": (8, 68, 120, 128, 0, 256, 256),
+               "up3": (8, 136, 240, 128, 128, 128, 64),
+               "up4": (8, 272, 480, 64, 64, 64, 64)}
+
+
+def check_core_kernels(record) -> None:
+    """Phase 2's option-core part: the five levels at b8 1080p, heights and
+    widths off the 16x16 tile, a 7-row image, uneven channel counts (not
+    multiples of 16), and the align-corners composition."""
+    errs = {name: check_dconv(*shape) for name, shape in CORE_LEVELS.items()}
+    errs["odd_2x19x37_24-40-8"] = check_dconv(2, 19, 37, 24, 0, 40, 8)
+    errs["rows7_1x7x9_32-16-16"] = check_dconv(1, 7, 9, 32, 0, 16, 16)
+    errs["up_odd_2x18x34_16+8-16-8"] = check_dconv(2, 18, 34, 16, 8, 16, 8)
+    errs["up_odd_1x14x22_8+24-24-8"] = check_dconv(1, 14, 22, 8, 24, 24, 8)
+    errs["align_corners_2x64x120_64+64-64-64"] = check_dconv(
+        2, 64, 120, 64, 64, 64, 64, align_corners=True)
+    record["dconv_errs"] = errs
+    record["double_conv_max_abs_err"] = max(
+        e for k, e in errs.items() if "up" not in k)
+    record["up_double_conv_max_abs_err"] = max(
+        e for k, e in errs.items() if "up" in k)
+
+
 def frames(n, h, w, seed):
     """Structured gray frames (a moving pattern plus noise), uint8 NHWC."""
     gen = np.random.default_rng(seed)
@@ -308,9 +410,49 @@ def refilter_tree(src, dst) -> None:
                 f.write(data)
 
 
-def reference_midpoints(engine, f1, f2) -> torch.Tensor:
+def plain_core(model, x1, x2) -> torch.Tensor:
+    """The option core (``models/core_t.py:forward_pre_refine``) composed
+    here from the port's modules with the kernels' plain versions at the
+    five outer levels, for the checks only: the f32 NCHW pre-refine
+    prediction."""
+    from ai_based_frame_interpolation_torch.models.core_t import (
+        _pool2, _s2d_nhwc, _upsample2x_t)
+    from ai_based_frame_interpolation_torch.models.unet import depth_to_space
+    from ai_based_frame_interpolation_torch.ops.dconv_fused import (
+        double_conv_reference, up_double_conv_reference)
+
+    cfg, cdt, u = model.cfg, model.compute_dtype, model.unet
+    r = cfg.space_to_depth
+
+    def dconv(dc, x):
+        return double_conv_reference(x, dc.conv1.weight, dc.conv1.bias,
+                                     dc.conv2.weight, dc.conv2.bias, cdt)
+
+    def up(dc, skip, low):
+        if cfg.upsample == "align_corners":
+            return dconv(dc, torch.cat([skip, _upsample2x_t(low)], -1))
+        return up_double_conv_reference(skip, low, dc.conv1.weight,
+                                        dc.conv1.bias, dc.conv2.weight,
+                                        dc.conv2.bias, cdt)
+
+    f1, f2 = _s2d_nhwc(x1, r), _s2d_nhwc(x2, r)
+    s0 = dconv(u.inc, torch.cat([f1.to(cdt), f2.to(cdt)], -1))
+    s1 = dconv(u.down1.conv, _pool2(s0))
+    s2 = dconv(u.down2.conv, _pool2(s1)).permute(0, 3, 1, 2)
+    s3 = u.down3(s2, cdt)
+    y = u.up2(u.up1(u.down4(s3, cdt), s3, cdt), s2, cdt).permute(0, 2, 3, 1)
+    y = up(u.up4.conv, s0, up(u.up3.conv, s1, y))
+    y = torch.nn.functional.conv2d(y.permute(0, 3, 1, 2).float(),
+                                   u.outc.weight.float(), u.outc.bias.float())
+    if cfg.residual:
+        y = y + 0.5 * (f1 + f2).permute(0, 3, 1, 2).to(y.dtype)
+    return depth_to_space(y, r)
+
+
+def reference_midpoints(engine, f1, f2, core=False) -> torch.Tensor:
     """The engine's 2x path composed from the same port modules with the
-    plain refinement head, for the check only."""
+    plain refinement head (and with ``core`` the option core on its plain
+    versions), for the check only."""
     from ai_based_frame_interpolation_torch.ops.image import (
         denormalize_to_uint8, normalize_uint8)
     from ai_based_frame_interpolation_torch.ops.refine import (
@@ -324,7 +466,10 @@ def reference_midpoints(engine, f1, f2) -> torch.Tensor:
             engine._put(f1).permute(0, 3, 1, 2), cdt), engine.cfg.pad_multiple)
         x2, _ = pad_to_multiple(normalize_uint8(
             engine._put(f2).permute(0, 3, 1, 2), cdt), engine.cfg.pad_multiple)
-        y = model(x1, x2, skip_refine=True)
+        if core:
+            y = plain_core(model, x1, x2)
+        else:
+            y = model(x1, x2, skip_refine=True)
         out = refine_head_reference(
             y.permute(0, 2, 3, 1), (x1.permute(0, 2, 3, 1),
                                     x2.permute(0, 2, 3, 1)),
@@ -363,16 +508,32 @@ def reference_flow(engine, f1, f2, ts) -> torch.Tensor:
         return out.permute(0, 1, 3, 4, 2)
 
 
-def head_flops_bytes(b, h, w, c, nplanes, width=64, nf32=0):
-    """FLOPs and device bytes of the head: every input read once (``nf32``
-    of the planes besides the prediction in f32, the rest bf16), the bf16
-    output written once, the weights read once."""
+def head_flops_bytes(b, h, w, c, nplanes, width=64, nf32=0, depthwise=False):
+    """Tensor-core FLOPs, f32 CUDA-core FLOPs and device bytes of the head:
+    every input read once (``nf32`` of the planes besides the prediction in
+    f32, the rest bf16), the bf16 output written once, the weights read
+    once. The depthwise head's 3x3 (9 multiply-adds a channel) is its f32
+    work; its pointwise conv is a width x width GEMM."""
     px = b * h * w
-    flops = 2 * px * (9 * nplanes * width + 9 * width * width + width * c)
-    weights = 2 * (9 * nplanes * width + width + 9 * width * width + width) \
-        + 4 * (width * c + c)
+    conv2 = width * width if depthwise else 9 * width * width
+    flops = 2 * px * (9 * nplanes * width + conv2 + width * c)
+    f32_flops = 2 * px * 9 * width if depthwise else 0
+    weights = 2 * (9 * nplanes * width + width + conv2 + width) \
+        + 4 * (width * c + c) + (6 * 9 * width if depthwise else 0)
     byts = px * (4 * c + 4 * nf32 * c + 2 * (nplanes - c - nf32 * c)
                  + 2 * c) + weights
+    return flops, f32_flops, byts
+
+
+def dconv_flops_bytes(b, h, w, c0, c1, mid, cout):
+    """FLOPs and device bytes of a double conv (c1 == 0) or up block: the
+    input (and ``low`` at half size) read once, the bf16 output written
+    once, the bf16 weights and biases read once."""
+    px = b * h * w
+    cin = c0 + c1
+    flops = 2 * px * 9 * (cin * mid + mid * cout)
+    byts = 2 * (px * (c0 + cout) + px // 4 * c1
+                + 9 * (cin * mid + mid * cout) + mid + cout)
     return flops, byts
 
 
@@ -387,9 +548,11 @@ def sampler_flops_bytes(b, h, w, c, img_bytes=2):
     return flops, byts
 
 
-def bound(flops, byts, peak_flops):
-    """(bound ms, what bounds it) on the H100's published peaks."""
-    t_ops, t_bytes = flops / peak_flops, byts / H100_HBM_BYTES
+def bound(flops, byts, peak_flops, f32_flops=0):
+    """(bound ms, what bounds it) on the H100's published peaks; ``f32_flops``
+    run on the CUDA cores beside ``flops`` at ``peak_flops``."""
+    t_ops = max(flops / peak_flops, f32_flops / H100_F32_FLOPS)
+    t_bytes = byts / H100_HBM_BYTES
     return max(t_ops, t_bytes) * 1e3, \
         ("operations" if t_ops >= t_bytes else "bytes")
 
@@ -401,28 +564,31 @@ def ssim_flops_bytes(b, h, w, c):
     return flops, 2 * b * h * w * c + 4 * b
 
 
-def reset_counts() -> None:
+def _counted():
+    from ai_based_frame_interpolation_torch.ops.dconv_fused import (
+        double_conv_fused, up_double_conv_fused)
     from ai_based_frame_interpolation_torch.ops.refine import refine_head
     from ai_based_frame_interpolation_torch.ops.ssim_fused import (
         ssim_eval_fused)
     from ai_based_frame_interpolation_torch.ops.warp_fused import (
         sample_fused)
 
-    refine_head.launches = 0
-    sample_fused.launches = 0
-    ssim_eval_fused.launches = 0
+    return {"refine_head": refine_head, "sample_fused": sample_fused,
+            "ssim_eval": ssim_eval_fused, "double_conv": double_conv_fused,
+            "up_double_conv": up_double_conv_fused}
+
+
+def reset_counts() -> None:
+    for fn in _counted().values():
+        fn.launches = 0
 
 
 def counts() -> dict:
-    from ai_based_frame_interpolation_torch.ops.refine import refine_head
-    from ai_based_frame_interpolation_torch.ops.ssim_fused import (
-        ssim_eval_fused)
-    from ai_based_frame_interpolation_torch.ops.warp_fused import (
-        sample_fused)
+    return {name: fn.launches for name, fn in _counted().items()}
 
-    return {"refine_head": refine_head.launches,
-            "sample_fused": sample_fused.launches,
-            "ssim_eval": ssim_eval_fused.launches}
+
+NO_LAUNCHES = dict.fromkeys(("refine_head", "sample_fused", "ssim_eval",
+                             "double_conv", "up_double_conv"), 0)
 
 
 def build(record) -> None:
@@ -457,6 +623,12 @@ def check_kernels(record) -> None:
     errs = [check_kernel(s, width=16, nf32=2) for s in shapes]
     errs.append(check_kernel((2, 56, 96, 1, 4), width=16))
     record["refine_head_w16_max_abs_err"] = max(errs)
+    # the depthwise head: the U-Net path's 8x1088x1920 and one frame, off
+    # the tile (40x72), RGB (9 planes)
+    shapes = [(8, 1088, 1920, 1, 2), (1, 1088, 1920, 1, 2), (2, 40, 72, 1, 2),
+              (1, 40, 72, 3, 2)]
+    record["refine_head_dw_max_abs_err"] = max(
+        check_kernel(s, depthwise=True) for s in shapes)
     # the sampler: the flow path's 8x1088x1920 at mf16 with a time per
     # item, a 1080p frame at mf32, odd sizes, RGB, f32 frames, and frames
     # narrower than 2*max_flow + 2
@@ -469,6 +641,7 @@ def check_kernels(record) -> None:
             check_sampler(2, 9, 7, 1, 4, [0.4, 0.6])]
     record["sample_fused_max_abs_err"] = max(errs)
     check_ssim_kernels(record)
+    check_core_kernels(record)
 
 
 def serve_requests(engine, seed) -> dict:
@@ -541,6 +714,90 @@ def unet_path(record):
                            "uint8_differing_share": float((du > 0).mean())}
     record["requests"] = serve_requests(engine, seed=2)
     assert record["requests"]["launches"]["refine_head"] > 0
+    return engine, launches, out
+
+
+def core_path(record, xla_out, upsample="half_pixel"):
+    """The U-Net path on the option core: the production engine (with the
+    given decoder ``upsample``) with ``core_impl="pallas"`` on the same
+    weights and frames as the default route (``xla_out``; for another
+    decoder, an engine of that decoder on the default route), counts set
+    to 0 just before and read just after; within 1 LSB of the same modules
+    composed with the plain versions and of the default route. The
+    half-pixel decoder runs 3 double_conv and 2 up_double_conv launches
+    per dispatch; the align-corners one 5 double_conv on the concat."""
+    from ai_based_frame_interpolation_torch.config import ModelConfig
+    from ai_based_frame_interpolation_torch.infer.engine import (
+        InterpolationEngine)
+
+    cfg = ModelConfig(**dict(PROD, upsample=upsample))
+    engine = InterpolationEngine.random_init(cfg, seed=0, core_impl="pallas")
+    f1, f2 = frames(8, 1080, 1920, seed=1)
+    if xla_out is None:
+        xla_out = InterpolationEngine.random_init(cfg, seed=0) \
+            .interpolate_batch(f1, f2)
+    reset_counts()
+    t0 = time.perf_counter()
+    out = engine.interpolate_batch(f1, f2)
+    main_s = time.perf_counter() - t0
+    launches = counts()
+    print(f"U-Net option core ({upsample}): interpolate_batch b=8 "
+          f"1080x1920 -> {out.shape} {out.dtype} in {main_s:.3f} s (first "
+          f"call); launches {launches}", flush=True)
+    want_launches = dict(NO_LAUNCHES, double_conv=3, up_double_conv=2,
+                         refine_head=1) if upsample == "half_pixel" else \
+        dict(NO_LAUNCHES, double_conv=5, refine_head=1)
+    assert launches == want_launches, \
+        f"the option core ({upsample}) launched {launches}, not " \
+        f"{want_launches}, in one dispatch"
+    assert out.shape == (8, 1080, 1920, 1) and out.dtype == np.uint8
+    want = reference_midpoints(engine, f1, f2, core=True).cpu().numpy()
+    du = np.abs(out.astype(np.int16) - want.astype(np.int16))
+    dx = np.abs(out.astype(np.int16) - xla_out.astype(np.int16))
+    print(f"U-Net option core ({upsample}) vs plain core and head: max "
+          f"uint8 diff {int(du.max())}, differing "
+          f"{float((du > 0).mean()):.6g}; vs the default route: max "
+          f"{int(dx.max())}, differing {float((dx > 0).mean()):.6g}; mean "
+          f"output {float(out.mean()):.3f}", flush=True)
+    assert int(du.max()) <= 1 and int(dx.max()) <= 1
+    key = "core_path" if upsample == "half_pixel" else f"core_path_{upsample}"
+    record[key] = {"batch": 8, "hw": [1080, 1920], "launches": launches,
+                   "max_uint8_diff_vs_plain": int(du.max()),
+                   "uint8_differing_share": float((du > 0).mean()),
+                   "max_uint8_diff_vs_xla": int(dx.max()),
+                   "uint8_differing_share_vs_xla": float((dx > 0).mean())}
+    return engine, launches
+
+
+def depthwise_path(record):
+    """The U-Net path with the depthwise head (``refine_depthwise=True``),
+    counts set to 0 just before and read just after; within 1 LSB of the
+    same modules composed with the plain head."""
+    from ai_based_frame_interpolation_torch.config import ModelConfig
+    from ai_based_frame_interpolation_torch.infer.engine import (
+        InterpolationEngine)
+
+    engine = InterpolationEngine.random_init(
+        ModelConfig(**PROD, refine_depthwise=True), seed=0)
+    f1, f2 = frames(8, 1080, 1920, seed=1)
+    reset_counts()
+    out = engine.interpolate_batch(f1, f2)
+    launches = counts()
+    assert launches == dict(NO_LAUNCHES, refine_head=1), \
+        f"the depthwise head path launched {launches}"
+    assert out.shape == (8, 1080, 1920, 1) and out.dtype == np.uint8
+    want = reference_midpoints(engine, f1, f2).cpu().numpy()
+    du = np.abs(out.astype(np.int16) - want.astype(np.int16))
+    print(f"U-Net depthwise head: b=8 1080x1920, launches {launches}; vs "
+          f"plain head: max uint8 diff {int(du.max())}, differing "
+          f"{float((du > 0).mean()):.6g}, mean output {float(out.mean()):.3f}",
+          flush=True)
+    assert int(du.max()) <= 1
+    record["depthwise_path"] = {"batch": 8, "hw": [1080, 1920],
+                                "launches": launches,
+                                "max_uint8_diff_vs_plain": int(du.max()),
+                                "uint8_differing_share":
+                                    float((du > 0).mean())}
     return engine, launches
 
 
@@ -562,7 +819,7 @@ def flow_path(record):
     print(f"flow path: interpolate_batch b=8 1080x1920 -> {out.shape} "
           f"{out.dtype} in {main_s:.3f} s (first call); launches {launches}",
           flush=True)
-    assert launches == {"refine_head": 1, "sample_fused": 1, "ssim_eval": 0}, \
+    assert launches == dict(NO_LAUNCHES, refine_head=1, sample_fused=1), \
         "the flow path must launch each kernel once per dispatch"
     assert out.shape == (8, 1080, 1920, 1) and out.dtype == np.uint8
     want = reference_flow(engine, f1, f2, [0.5])[:, 0].cpu().numpy()
@@ -592,8 +849,8 @@ def flow_path(record):
         print(f"flow {name}: {got.shape}, launches {n}, max uint8 diff vs "
               f"plain {du}", flush=True)
         assert got.shape == (len(ts), 1080, 1920, 1) and du <= 1
-        assert n == {"refine_head": len(ts), "sample_fused": len(ts),
-                     "ssim_eval": 0}
+        assert n == dict(NO_LAUNCHES, refine_head=len(ts),
+                         sample_fused=len(ts))
         record["flow_path"][name] = {"launches": n, "max_uint8_diff": du}
     record["flow_requests"] = serve_requests(engine, seed=4)
     assert record["flow_requests"]["launches"]["sample_fused"] > 0
@@ -766,20 +1023,20 @@ def eval_path(record, unet, flow) -> dict:
               flush=True)
         out["unet_256"] = run_eval(
             "U-Net 256x256", unet, os.path.join(tmp, "256"), (256, 256),
-            {"refine_head": 2, "sample_fused": 0, "ssim_eval": 4},
+            dict(NO_LAUNCHES, refine_head=2, ssim_eval=4),
             os.path.join(tmp, "report_256"))
         out["unet_1080"] = run_eval(
             "U-Net 1080x1920", unet, os.path.join(tmp, "1080"), (1080, 1920),
-            {"refine_head": 1, "sample_fused": 0, "ssim_eval": 2},
+            dict(NO_LAUNCHES, refine_head=1, ssim_eval=2),
             os.path.join(tmp, "report_1080"))
         out["unet_1080_filters"] = run_eval(
             "U-Net 1080x1920, all five filters", unet,
             os.path.join(tmp, "1080_f"), (1080, 1920),
-            {"refine_head": 1, "sample_fused": 0, "ssim_eval": 2},
+            dict(NO_LAUNCHES, refine_head=1, ssim_eval=2),
             os.path.join(tmp, "report_1080_f"))
         out["flow_256"] = run_eval(
             "flow 256x256", flow, os.path.join(tmp, "256"), (256, 256),
-            {"refine_head": 2, "sample_fused": 2, "ssim_eval": 4},
+            dict(NO_LAUNCHES, refine_head=2, sample_fused=2, ssim_eval=4),
             os.path.join(tmp, "report_flow_256"))
     record["eval_path"] = out
     return out
@@ -859,14 +1116,15 @@ def time_engine(engine, label, smi, sizes) -> dict:
     return out
 
 
-def time_head(smi, width, nextra, nf32) -> dict:
+def time_head(smi, width, nextra, nf32, depthwise=False) -> dict:
     """The head at 1x1088x1920 gray: kernel, plain, library (cuDNN bf16
     channels_last convs with fused bias; timed here only) and bound."""
     from ai_based_frame_interpolation_torch.ops.refine import (
         pack_head_weights, refine_head, refine_head_reference)
 
     b, h, w, c = 1, 1088, 1920, 1
-    y, planes, params = head_inputs(b, h, w, c, nextra, width, nf32=nf32)
+    y, planes, params = head_inputs(b, h, w, c, nextra, width, nf32=nf32,
+                                    depthwise=depthwise)
     packed = pack_head_weights(params)
     k_ms = cuda_ms(lambda: refine_head(y, planes, params, packed=packed), 10)
     p_ms = cuda_ms(lambda: refine_head_reference(y, planes, params), 10)
@@ -883,23 +1141,91 @@ def time_head(smi, width, nextra, nf32) -> dict:
     def library():
         z = f.relu(f.conv2d(z0, lw["refine1"]["weight"],
                             lw["refine1"]["bias"], padding=1))
-        z = f.relu(f.conv2d(z, lw["refine2"]["weight"],
-                            lw["refine2"]["bias"], padding=1))
+        if depthwise:
+            z = f.conv2d(z, lw["refine2_dw"]["weight"],
+                         lw["refine2_dw"]["bias"], padding=1, groups=width)
+            z = f.relu(f.conv2d(z, lw["refine2_pw"]["weight"],
+                                lw["refine2_pw"]["bias"]))
+        else:
+            z = f.relu(f.conv2d(z, lw["refine2"]["weight"],
+                                lw["refine2"]["bias"], padding=1))
         return pred + f.conv2d(z, lw["refine_out"]["weight"],
                                lw["refine_out"]["bias"])
 
     l_ms = cuda_ms(library, 10)
     nplanes = (1 + nextra) * c
-    flops, byts = head_flops_bytes(b, h, w, c, nplanes, width, nf32)
-    bound_ms, bound_by = bound(flops, byts, H100_BF16_FLOPS)
-    print(f"[{smi}] refine_head 1x1088x1920 gray {nplanes} planes ({nf32} "
+    flops, f32_flops, byts = head_flops_bytes(b, h, w, c, nplanes, width,
+                                              nf32, depthwise)
+    bound_ms, bound_by = bound(flops, byts, H100_BF16_FLOPS, f32_flops)
+    print(f"[{smi}] refine_head{' depthwise' if depthwise else ''} "
+          f"1x1088x1920 gray {nplanes} planes ({nf32} "
           f"f32) w{width}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
           f"library (cuDNN bf16 channels_last convs) {l_ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms ({bound_by}: {flops / 1e9:.2f} GFLOP bf16, "
+          f"{f32_flops / 1e9:.2f} GFLOP f32, {byts / 1e6:.2f} MB)", flush=True)
+    return {"ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops,
+            "bytes": byts}
+
+
+def time_dconv(smi, name, shape) -> dict:
+    """One option-core level (``CORE_LEVELS``): kernel (weights packed
+    once, as the engine packs them), plain, library (cuDNN's bf16
+    channels_last conv pair with fused bias and ReLU; for the up block
+    after ``F.interpolate`` and ``torch.cat``; timed here only) and
+    bound."""
+    from ai_based_frame_interpolation_torch.ops.dconv_fused import (
+        double_conv_fused, double_conv_reference, pack_dconv_weights,
+        up_double_conv_fused, up_double_conv_reference)
+
+    b, h, w, c0, c1, mid, cout = shape
+    x, low, wts = dconv_inputs(*shape, seed=5)
+    packed = pack_dconv_weights(*wts, split=c0 if c1 else None)
+    f = torch.nn.functional
+    cl = torch.channels_last
+    w1, b1, w2, b2 = (t.to(torch.bfloat16) for t in wts)
+    w1, w2 = (t.contiguous(memory_format=cl) for t in (w1, w2))
+    xl = x.permute(0, 3, 1, 2)
+    if c1:
+        lowl = low.permute(0, 3, 1, 2)
+        k_ms = cuda_ms(lambda: up_double_conv_fused(x, low, *wts,
+                                                    packed=packed), 10)
+        p_ms = cuda_ms(lambda: up_double_conv_reference(x, low, *wts), 5)
+
+        def first():
+            up = f.interpolate(lowl, scale_factor=2, mode="bilinear",
+                               align_corners=False)
+            return torch.cat([xl, up], 1)
+    else:
+        k_ms = cuda_ms(lambda: double_conv_fused(x, *wts, packed=packed), 10)
+        p_ms = cuda_ms(lambda: double_conv_reference(x, *wts), 5)
+        first = lambda: xl  # noqa: E731
+
+    def library():
+        z = f.relu(f.conv2d(first(), w1, b1, padding=1))
+        return f.relu(f.conv2d(z, w2, b2, padding=1))
+
+    l_ms = cuda_ms(library, 10)
+    flops, byts = dconv_flops_bytes(*shape)
+    bound_ms, bound_by = bound(flops, byts, H100_BF16_FLOPS)
+    print(f"[{smi}] {'up_' if c1 else ''}double_conv {name} B={b} {h}x{w} "
+          f"{c0}+{c1}->{mid}->{cout}: kernel {k_ms:.4f} ms, plain "
+          f"{p_ms:.4f} ms, library (cuDNN bf16 channels_last conv pair"
+          f"{', F.interpolate + cat' if c1 else ''}) {l_ms:.4f} ms, bound "
           f"{bound_ms:.4f} ms ({bound_by}: {flops / 1e9:.2f} GFLOP, "
           f"{byts / 1e6:.2f} MB)", flush=True)
     return {"ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops,
             "bytes": byts}
+
+
+def summed(parts) -> dict:
+    """Timings of the bf16 tensor-core calls one dispatch makes, added up;
+    bound by what bounds their sum."""
+    out = {k: sum(p[k] for p in parts) for k in
+           ("ms", "plain_ms", "library_ms", "bound_ms", "flops", "bytes")}
+    out["bound_by"] = bound(out["flops"], out["bytes"], H100_BF16_FLOPS)[1]
+    return out
 
 
 def time_sampler(smi, max_flow=16) -> dict:
@@ -943,17 +1269,35 @@ def main() -> int:
 
     build(record)                              # 1.
     check_kernels(record)                      # 2.
-    unet, unet_launches = unet_path(record)    # 3.
+    unet, unet_launches, unet_out = unet_path(record)    # 3.
+    core, core_launches = core_path(record, unet_out)
+    del unet_out
+    core_path(record, None, upsample="align_corners")
+    dw, dw_launches = depthwise_path(record)
     flow, flow_launches = flow_path(record)    # 4.
     evals = eval_path(record, unet, flow)      # 6. (before 5 frees them)
 
-    # 5. timings (CUDA events, after warm-up)
-    timings = time_engine(unet, "unet", smi, ((8, 10), (32, 4)))
-    del unet
-    timings.update(time_engine(flow, "flow", smi, ((8, 10), (32, 4))))
+    # 5. timings (CUDA events, after warm-up); the default U-Net route
+    # before and after the option core
+    sizes = ((8, 10), (32, 4))
+    timings = time_engine(unet, "unet", smi, sizes)
+    timings.update(time_engine(core, "unet_core", smi, sizes))
+    timings.update(time_engine(unet, "unet_again", smi, sizes))
+    del unet, core
+    timings.update(time_engine(dw, "unet_dw", smi, sizes))
+    del dw
+    timings.update(time_engine(flow, "flow", smi, sizes))
     del flow
     timings["refine_head_w64_1088x1920"] = time_head(smi, 64, 2, 0)
     timings["refine_head_w16_1088x1920"] = time_head(smi, 16, 4, 2)
+    timings["refine_head_dw_1088x1920"] = time_head(smi, 64, 2, 0,
+                                                    depthwise=True)
+    for name, shape in CORE_LEVELS.items():
+        timings[f"dconv_{name}_b8"] = time_dconv(smi, name, shape)
+    timings["double_conv_b8"] = summed(
+        [timings[f"dconv_{n}_b8"] for n in ("inc", "down1", "down2")])
+    timings["up_double_conv_b8"] = summed(
+        [timings[f"dconv_{n}_b8"] for n in ("up3", "up4")])
     timings["sample_fused_1088x1920"] = time_sampler(smi)
     timings["ssim_eval_8x256x256"] = time_ssim(smi, 8, 256, 256)
     timings["ssim_eval_8x1080x1920"] = time_ssim(smi, 8, 1080, 1920)
@@ -994,7 +1338,16 @@ def main() -> int:
              ssim_errs["8x256x256"], "ssim_eval_8x256x256"),
             ("ssim_eval_1080", "ssim_eval.cu", "ssim_fused.py:169",
              evals["unet_1080"]["launches"]["ssim_eval"],
-             ssim_errs["8x1080x1920"], "ssim_eval_8x1080x1920")):
+             ssim_errs["8x1080x1920"], "ssim_eval_8x1080x1920"),
+            ("double_conv", "double_conv.cu", "dconv_fused.py:164",
+             core_launches["double_conv"], record["double_conv_max_abs_err"],
+             "double_conv_b8"),
+            ("up_double_conv", "double_conv.cu", "dconv_fused.py:411",
+             core_launches["up_double_conv"],
+             record["up_double_conv_max_abs_err"], "up_double_conv_b8"),
+            ("refine_head_dw", "refine_head.cu", "refine_fused.py:417",
+             dw_launches["refine_head"], record["refine_head_dw_max_abs_err"],
+             "refine_head_dw_1088x1920")):
         t = timings[tm]
         kernels.append({"name": name, "route": "cuda", "source": src + cu,
                         "replaces": pallas + replaces, "launches": launches,

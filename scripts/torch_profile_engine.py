@@ -1,15 +1,18 @@
 """Where the port's engine spends device time: a torch.profiler window.
 
     python3 scripts/torch_profile_engine.py [--arch unet|flow] [--batch 8]
-                                           [--calls 3]
+                                           [--calls 3] [--core-impl xla]
+                                           [--depthwise]
 
 Runs a production engine of the PyTorch port (random weights from seed 0)
 on gray 1080p 2x batches on the CUDA card, profiles a few warm calls, and
 prints the device time by kernel name and the device's busy share of the
 window, then the same as one JSON line. ``--arch unet`` is the production
 U-Net (s2d 4, base 64, head 64); ``--arch flow`` the flow production
-config (base 32, flow_scale 4, head 16, shifts warp, max_flow 16). Needs a
-CUDA card; fails without one.
+config (base 32, flow_scale 4, head 16, shifts warp, max_flow 16). For the
+U-Net, ``--core-impl`` is the engine's ``core_impl`` (``pallas``: the
+option core) and ``--depthwise`` selects the depthwise head. Needs a CUDA
+card; fails without one.
 """
 
 from __future__ import annotations
@@ -32,6 +35,9 @@ def main(argv=None) -> int:
     p.add_argument("--arch", choices=("unet", "flow"), default="unet")
     p.add_argument("--batch", type=int, default=8)
     p.add_argument("--calls", type=int, default=3)
+    p.add_argument("--core-impl", choices=("xla", "auto", "pallas"),
+                   default="xla")
+    p.add_argument("--depthwise", action="store_true")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("torch_profile_engine: needs a CUDA card", file=sys.stderr)
@@ -46,10 +52,12 @@ def main(argv=None) -> int:
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip().splitlines()[0]
     cfg = ModelConfig(space_to_depth=4, residual=True, refine_width=64,
-                      upsample="half_pixel") if args.arch == "unet" else \
+                      upsample="half_pixel", refine_depthwise=args.depthwise) \
+        if args.arch == "unet" else \
         ModelConfig(arch="flow", base_width=32, flow_scale=4, refine_width=16,
                     warp_impl="shifts", max_flow=16)
-    engine = InterpolationEngine.random_init(cfg, seed=0)
+    engine = InterpolationEngine.random_init(cfg, seed=0,
+                                             core_impl=args.core_impl)
     gen = np.random.default_rng(0)
     shape = (args.batch, 1080, 1920, 1)
     f1 = engine._put(gen.integers(0, 256, shape, np.uint8))
@@ -77,7 +85,10 @@ def main(argv=None) -> int:
     rows.sort(key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
     per_call = wall_ms / args.calls
-    lines = [f"[{card}] {args.arch} engine 1080p gray 2x b={args.batch}: "
+    label = args.arch if args.arch == "flow" else (
+        f"unet core_impl={args.core_impl}"
+        f"{' depthwise head' if args.depthwise else ''}")
+    lines = [f"[{card}] {label} engine 1080p gray 2x b={args.batch}: "
              f"{per_call:.3f} ms "
              f"per call (host clock, {args.calls} calls), device busy "
              f"{busy:.3f} ms per call ({100 * busy / per_call:.1f}%)"]
@@ -86,7 +97,9 @@ def main(argv=None) -> int:
     if not rows:
         lines.append("profiler recorded no device time")
     print("\n".join(lines), flush=True)
-    print(json.dumps({"card": card, "arch": args.arch, "batch": args.batch,
+    print(json.dumps({"card": card, "arch": args.arch,
+                      "core_impl": args.core_impl,
+                      "depthwise": args.depthwise, "batch": args.batch,
                       "ms_per_call": per_call, "device_busy_ms": busy,
                       "kernels": rows}), flush=True)
     return 0 if rows else 1

@@ -162,3 +162,111 @@ def test_packed_weights_are_the_kernel_layout(c, nextra, width):
     args = (y, planes, params, torch.bfloat16)
     assert torch.equal(refine_head(*args, packed=pack_head_weights(params)),
                        refine_head(*args))
+
+
+def _dw_head_params(nplanes, c, width, seed=0):
+    """Flax-layout depthwise head params: refine2 split into a depthwise
+    3x3 (kernel (3, 3, 1, w)) and a pointwise 1x1."""
+    params = _head_params(nplanes, c, width, seed)
+    gen = np.random.default_rng(seed + 100)
+    del params["refine2"]
+    params["refine2_dw"] = {
+        "kernel": (gen.standard_normal((3, 3, 1, width)) / 3.0)
+        .astype(np.float32),
+        "bias": (0.1 * gen.standard_normal(width)).astype(np.float32)}
+    params["refine2_pw"] = {
+        "kernel": (gen.standard_normal((1, 1, width, width))
+                   / np.sqrt(width)).astype(np.float32),
+        "bias": (0.1 * gen.standard_normal(width)).astype(np.float32)}
+    return params
+
+
+def test_depthwise_reference_matches_pallas_interpret():
+    """The plain depthwise head vs the Pallas head's depthwise branch, at
+    head width 8 and 1x24x16 gray: three 8-row tiles (with one tile, the
+    CPU backend has no bf16 dot for the pointwise conv)."""
+    b, h, w, c, nextra = 1, 24, 16, 1, 2
+    fp = _dw_head_params((1 + nextra) * c, c, width=8)
+    y, planes = _inputs(b, h, w, c, nextra, seed=5)
+    with jax.default_device(CPU):
+        want = np.asarray(refine_head_fused(
+            jnp.asarray(y), tuple(jnp.asarray(p, jnp.bfloat16) for p in planes),
+            fp["refine1"], None, fp["refine_out"],
+            refine2_dw=fp["refine2_dw"], refine2_pw=fp["refine2_pw"],
+            interpret=True), np.float32)
+    got = refine_head_reference(
+        torch.from_numpy(y), [torch.from_numpy(p) for p in planes],
+        _torch_params(fp), torch.bfloat16)
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == (b, h, w, c)
+    _bf16_close(got.float().numpy(), want)
+
+
+def test_packed_depthwise_weights_are_the_kernel_layout():
+    """The depthwise head's packed layouts (wdw (tap, channel) in f32 from
+    bf16, wpw (out, in)) give the plain depthwise head, in f32, when the
+    head is computed from them as the kernel indexes them."""
+    c, nextra, width = 1, 2, 64
+    nplanes = (1 + nextra) * c
+    params = {n: {k: v.bfloat16().float() for k, v in p.items()}
+              for n, p in _torch_params(
+                  _dw_head_params(nplanes, c, width)).items()}
+    y, planes = _inputs(1, 12, 20, c, nextra)
+    y, planes = torch.from_numpy(y), [torch.from_numpy(p) for p in planes]
+    packed = pack_head_weights(params)
+    assert "w2" not in packed and packed["wdw"].dtype == torch.float32
+    assert torch.equal(packed["wdw"], packed["wdw"].bfloat16().float())
+    kw = {k: v.float() for k, v in packed.items()}
+    assert tuple(kw["wdw"].shape) == (9, width)
+    assert tuple(kw["wpw"].shape) == (width, width)
+
+    def taps(z):                      # [B,H,W,K] -> [B,H,W,9,K], SAME pad
+        zp = torch.nn.functional.pad(z, (0, 0, 1, 1, 1, 1))
+        h, w = z.shape[1:3]
+        return torch.stack([zp[:, dy:dy + h, dx:dx + w]
+                            for dy in range(3) for dx in range(3)], 3)
+
+    z = torch.cat([y] + planes, -1)
+    z1 = torch.relu(taps(z).flatten(3) @ kw["w1"].t() + kw["b1"])
+    zdw = (taps(z1) * kw["wdw"]).sum(3) + kw["bdw"]
+    z2 = torch.relu(zdw @ kw["wpw"].t() + kw["bpw"])
+    got = y + z2 @ kw["w3"] + kw["b3"]
+    want = refine_head_reference(y, planes, params, torch.float32)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=1e-4)
+
+
+def test_cpu_wrapper_runs_the_plain_depthwise_head_without_launching():
+    fp = _dw_head_params(3, 1, width=64)
+    y, planes = _inputs(1, 16, 16, 1, 2)
+    before = refine_head.launches
+    args = (torch.from_numpy(y), [torch.from_numpy(p) for p in planes],
+            _torch_params(fp), torch.bfloat16)
+    assert torch.equal(refine_head(*args, packed=pack_head_weights(args[2])),
+                       refine_head_reference(*args))
+    assert refine_head.launches == before
+
+
+def test_depthwise_engine_matches_jax():
+    """The port engine with the depthwise head (``refine_depthwise=True``)
+    within 1 uint8 LSB of the JAX engine, f32, on bridged weights."""
+    from ai_based_frame_interpolation_torch.config import ModelConfig
+    from ai_based_frame_interpolation_torch.infer.engine import (
+        InterpolationEngine)
+    from ai_based_frame_interpolation_tpu.infer.engine import (
+        InterpolationEngine as JEngine)
+    from test_torch_unet import random_variables
+
+    kw = dict(base_width=8, depth=2, space_to_depth=4, residual=True,
+              refine_width=8, refine_depthwise=True, upsample="half_pixel")
+    variables = random_variables(kw, (32, 48), seed=2)
+    jeng = JEngine(j_build(JConfig(**kw), jnp.float32), variables,
+                   compute_dtype=jnp.float32)
+    teng = InterpolationEngine.from_flax_variables(
+        variables, ModelConfig(**kw), compute_dtype=torch.float32,
+        device="cpu")
+    assert "wdw" in teng.model.packed_head
+    gen = np.random.default_rng(6)
+    f1 = gen.integers(0, 256, (2, 40, 56, 1), dtype=np.uint8)
+    f2 = np.roll(f1, 2, axis=2)
+    got, want = teng.interpolate_batch(f1, f2), jeng.interpolate_batch(f1, f2)
+    assert got.shape == want.shape and got.dtype == np.uint8
+    assert int(np.abs(got.astype(np.int16) - want.astype(np.int16)).max()) <= 1
