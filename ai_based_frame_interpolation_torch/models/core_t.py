@@ -100,7 +100,7 @@ def _blocks(model) -> dict:
 def pack_core_weights(model) -> dict:
     """The kernels' weight layouts of the five outer blocks, by level
     (``ops.dconv_fused.pack_dconv_weights``), from the folded model's
-    weights as placed now. With the half-pixel decoder ``up3`` and ``up4``
+    weights as placed now, in the model's compute dtype. With the half-pixel decoder ``up3`` and ``up4``
     run the up-block kernel, whose w1 is split at the skip's channels; the
     align-corners decoder runs them as a double conv of the concat."""
     if not model.folded:
@@ -110,7 +110,8 @@ def pack_core_weights(model) -> dict:
     if model.cfg.upsample == "half_pixel":
         split = {"up3": u.down1.conv.conv2.out_channels,
                  "up4": u.inc.conv2.out_channels}
-    return {name: pack_dconv_weights(*_weights(dc), split=split.get(name))
+    return {name: pack_dconv_weights(*_weights(dc), split=split.get(name),
+                                     compute_dtype=model.compute_dtype)
             for name, dc in _blocks(model).items()}
 
 

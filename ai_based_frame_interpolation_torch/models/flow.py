@@ -85,7 +85,8 @@ class FlowInterpolator(nn.Module):
     def pack_head(self) -> None:
         """Build the head kernel's weight layouts once (as
         ``FrameInterpolationUNet.pack_head``)."""
-        self.packed_head = pack_head_weights(self.head_params()) \
+        self.packed_head = pack_head_weights(
+            self.head_params(), self.compute_dtype) \
             if self.cfg.refine_width > 0 else None
 
     def motion(self, frame1: torch.Tensor, frame2: torch.Tensor

@@ -219,8 +219,8 @@ class FrameInterpolationUNet(nn.Module):
         loaded and placed now (``ops.refine.pack_head_weights``); the
         engine calls it after loading. Forward passes them to every head
         call, so it must be called again after the weights change."""
-        self.packed_head = pack_head_weights(self.head_params()) \
-            if self.has_head else None
+        self.packed_head = pack_head_weights(
+            self.head_params(), self.compute_dtype) if self.has_head else None
 
     def pack_core(self) -> None:
         """Build the core kernels' weight layouts once, as :meth:`pack_head`

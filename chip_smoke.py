@@ -15,7 +15,14 @@ Drives the port only (it imports nothing of JAX or of the JAX package):
    images, two runs bit for bit), and the option core's double conv (inc,
    down1, down2 at b8 1080p) and up block (up3, up4), with heights and
    widths off the tile, a 7-row image, uneven channel counts and the
-   align-corners composition;
+   align-corners composition; then every head route the port has besides
+   those (bf16 heads at widths 8 and 32 padded to the fused instances,
+   depthwise heads at widths 16 and 32, a bf16 head at width 128 and f32
+   heads at widths 64 and 16, dense and depthwise, on the direct convs) and
+   the f32 double conv and up block (the direct convs) at the five levels'
+   b2 1080p shapes, two b8 ones and odd ones, f32 against a plain side run
+   with TF32 off; each check also reads the launches its wrapper counted
+   under the route it took;
 3. drives the U-Net path once: the full-width production U-Net engine
    (s2d 4, base 64, depth 4, residual, refinement head 64, half-pixel
    decoder, random weights from a seed) on a batch of 8 gray 1080p frame
@@ -27,14 +34,18 @@ Drives the port only (it imports nothing of JAX or of the JAX package):
    dispatch, also within 1 LSB of the default route on the same weights),
    the option core again with the align-corners decoder (5 double-conv
    launches, the upsample composed) against its own default route, and
-   with the depthwise head (``refine_depthwise=True``);
+   with the depthwise head (``refine_depthwise=True``), then the f32
+   production engine (``compute_dtype=torch.float32``) at b2 1080p on the
+   default route (the head on the direct convs: 2 + 1 launches) and on the
+   option core (10 more direct-conv launches), TF32 off for the phase;
 4. drives the flow path the same way: the full-width flow production engine
    (base 32, depth 4, flow_scale 4, refinement head 16, shifts warp,
    max_flow 16) on 8 gray 1080p pairs, checked against the same modules
    composed with the plain sampler and head, then 3 in-betweens, two
    arbitrary times and concurrent requests through the batcher;
 5. times the engines (U-Net on the default route, the option core and the
-   depthwise head; flow) and each kernel with CUDA events, the host PNG
+   depthwise head; flow) and each kernel and route with CUDA events (the
+   option core's levels with the time per weight chunk), the host PNG
    decode of a 1080p gray file per scanline filter, and the eval path's
    ``evaluate_model`` calls split into decode, engine and metric time,
    with the device's busy time in one profiled call;
@@ -47,6 +58,11 @@ Drives the port only (it imports nothing of JAX or of the JAX package):
    per-triplet PSNR and SSIM held against the plain metrics on the same
    arrays, and the JSON, CSV and markdown reports written and read back.
 
+Besides each kernel's launch counter, the wrappers that pick a route
+(``refine_head``, ``double_conv_fused``, ``up_double_conv_fused``) count
+their launches under it (``.routes``); the kernels line reads those counts
+over the main-path runs of phases 3, 4 and 6.
+
 Any failure raises and exits non-zero. It prints the kernel record as one
 JSON line before the last, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``,
@@ -55,6 +71,7 @@ after a ``record {...}`` line with every number it measured.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import json
 import os
@@ -82,6 +99,7 @@ SAMPLER_BOUND = 1e-5           # f32 lerps rounded where the plain version round
 SSIM_BOUND = 2e-4
 SSIM_FLOPS_PER_PX = 90         # per valid position: 3 mul, 60 adds, ~25 algebra, 1 sum
 PSNR_BOUND_DB = 1e-4
+F32_BOUND = 1e-4               # f32 kernels vs plain with TF32 off: sums in another order
 
 
 def card() -> str:
@@ -89,6 +107,27 @@ def card() -> str:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+@contextlib.contextmanager
+def no_tf32():
+    """Full f32 convolutions and matmuls (cuDNN's f32 convs run in TF32 by
+    default) for an f32 plain side, restored after."""
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
+
+
+def bf16_ulp(want: torch.Tensor) -> float:
+    """One bf16 ulp at the magnitude of the largest value of ``want``."""
+    mag = float(want.float().abs().max())
+    return 2.0 ** (np.floor(np.log2(mag)) - 7) if mag > 0 else 2.0 ** -133
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -164,6 +203,69 @@ def check_kernel(shape, width=64, nf32=0, depthwise=False) -> float:
     assert err <= FLOAT_BOUND, f"kernel disagrees by {err}"
     assert int(du.max()) <= 1, f"kernel disagrees by {int(du.max())} LSB"
     return err
+
+
+def check_head_route(shape, width, dtype=torch.bfloat16, depthwise=False,
+                     nf32=0) -> float:
+    """The head on the kernel ``head_route`` picks (a fused instance, the
+    width padded with zeros; or the direct convs) vs the plain head: bf16
+    within one ulp at the output's magnitude, f32 within F32_BOUND with
+    TF32 off on the plain side; the route's launches counted."""
+    from ai_based_frame_interpolation_torch.ops.refine import (
+        head_route, pack_head_weights, refine_head, refine_head_reference)
+
+    b, h, w, c, nextra = shape
+    y, planes, params = head_inputs(b, h, w, c, nextra, width, nf32=nf32,
+                                    depthwise=depthwise)
+    if dtype == torch.float32:
+        planes = [p.float() for p in planes]
+    route = head_route(width, dtype, depthwise)
+    packed = pack_head_weights(params, dtype)
+    before, routes = counts(), route_counts()
+    got = refine_head(y, planes, params, dtype, packed)
+    torch.cuda.synchronize()
+    n = {k: v - before[k] for k, v in counts().items()}
+    expect = dict(NO_LAUNCHES, refine_head=1) if route != "direct" else \
+        dict(NO_LAUNCHES, conv_direct=3 if depthwise else 2,
+             head_out_direct=1)
+    assert n == expect, f"head w{width} {dtype}: launches {n} != {expect}"
+    key = (f"refine_head {route}/{'dw' if depthwise else 'w'}{width}/"
+           f"{str(dtype)[6:]}")
+    got_routes = {k: v - routes.get(k, 0) for k, v in route_counts().items()
+                  if v != routes.get(k, 0)}
+    assert got_routes == {key: sum(n.values())}, \
+        f"head w{width} {dtype}: routes {got_routes}"
+    with no_tf32():
+        want = refine_head_reference(y, planes, params, dtype)
+    err = float((got.float() - want.float()).abs().max())
+    tol = F32_BOUND if dtype == torch.float32 else bf16_ulp(want)
+    print(f"refine_head route {route} {'depthwise ' if depthwise else ''}"
+          f"w{width} {dtype} B={b} {h}x{w} planes={(1 + nextra) * c}: "
+          f"max|kernel-plain|={err:.6g} (bound {tol:.6g}), bit-identical "
+          f"{float((got == want).float().mean()):.6g}", flush=True)
+    assert got.shape == want.shape and got.dtype == dtype
+    assert bool(torch.isfinite(got.float()).all())
+    assert err <= tol, f"head w{width} {dtype} disagrees by {err}"
+    return err
+
+
+def check_head_routes(record) -> None:
+    """Phase 2's part for the heads beside the production instances: the
+    padded bf16 widths, the depthwise head at 16 and 32, the wide bf16 head and
+    the f32 heads (the U-Net's 3 planes; the flow head's 5, 2 of them
+    f32 warped frames), at one 1088x1920 frame and off the tile."""
+    errs = {}
+    for width, dt, dw, nextra, nf32 in (
+            (8, torch.bfloat16, False, 2, 0), (32, torch.bfloat16, False, 2, 0),
+            (16, torch.bfloat16, True, 2, 0), (32, torch.bfloat16, True, 2, 0),
+            (128, torch.bfloat16, False, 2, 0),
+            (64, torch.float32, False, 2, 0), (64, torch.float32, True, 2, 0),
+            (16, torch.float32, False, 4, 2)):
+        for shape in ((1, 1088, 1920, 1, nextra), (2, 40, 72, 1, nextra)):
+            key = (f"{'dw' if dw else 'w'}{width}_{str(dt)[6:]}_"
+                   f"{'x'.join(map(str, shape[:3]))}")
+            errs[key] = check_head_route(shape, width, dt, dw, nf32)
+    record["head_route_errs"] = errs
 
 
 def sampler_inputs(b, h, w, c, max_flow, ts, dtype=torch.bfloat16, seed=0):
@@ -288,43 +390,60 @@ def dconv_inputs(b, h, w, c0, c1, mid, cout, seed=0):
     return x, low, wts
 
 
-def check_dconv(b, h, w, c0, c1, mid, cout, align_corners=False) -> float:
+def check_dconv(b, h, w, c0, c1, mid, cout, align_corners=False,
+                dtype=torch.bfloat16) -> float:
     """The double_conv kernel (c1 == 0) or the up block (c1 > 0) vs its
     plain version on the card, within FLOAT_BOUND (the outputs stay under
     4 in magnitude, so 2 bf16 ulp). ``align_corners``: the option core's
     align-corners composition, the up block as ``_upsample2x_t`` and the
-    double-conv kernel on the concat."""
+    double-conv kernel on the concat. In f32 (``dtype``): the direct-conv
+    route, two launches, within F32_BOUND of the plain version with TF32
+    off."""
     from ai_based_frame_interpolation_torch.models.core_t import _upsample2x_t
     from ai_based_frame_interpolation_torch.ops.dconv_fused import (
         double_conv_fused, double_conv_reference, pack_dconv_weights,
         up_double_conv_fused, up_double_conv_reference)
 
     x, low, wts = dconv_inputs(b, h, w, c0, c1, mid, cout, seed=h + w + c0)
+    f32 = dtype == torch.float32
+    if f32:
+        x, low = x.float(), None if low is None else low.float()
     up_block = c1 and not align_corners
-    packed = pack_dconv_weights(*wts, split=c0 if up_block else None)
-    before = (double_conv_fused.launches, up_double_conv_fused.launches)
+    packed = pack_dconv_weights(*wts, split=c0 if up_block else None,
+                                compute_dtype=dtype)
+    before, routes = counts(), route_counts()
     if up_block:
-        got = up_double_conv_fused(x, low, *wts, packed=packed)
-        want = up_double_conv_reference(x, low, *wts)
-        expect = (before[0], before[1] + 1)
+        got = up_double_conv_fused(x, low, *wts, dtype, packed)
+        with no_tf32():
+            want = up_double_conv_reference(x, low, *wts, dtype)
+        expect = {"up_double_conv": 1}
     else:
         if align_corners:
             x = torch.cat([x, _upsample2x_t(low)], -1)
-        got = double_conv_fused(x, *wts, packed=packed)
-        want = double_conv_reference(x, *wts)
-        expect = (before[0] + 1, before[1])
+        got = double_conv_fused(x, *wts, dtype, packed)
+        with no_tf32():
+            want = double_conv_reference(x, *wts, dtype)
+        expect = {"double_conv": 1}
     torch.cuda.synchronize()
-    assert (double_conv_fused.launches, up_double_conv_fused.launches) == \
-        expect, "the double_conv kernel did not launch"
+    n = {k: v - before[k] for k, v in counts().items()}
+    route = (f"{next(iter(expect))} {'direct' if f32 else 'fused'}",
+             2 if f32 else 1)
+    expect = dict(NO_LAUNCHES, **({"conv_direct": 2} if f32 else expect))
+    assert n == expect, f"the double_conv route launched {n}, not {expect}"
+    got_routes = {k: v - routes.get(k, 0) for k, v in route_counts().items()
+                  if v != routes.get(k, 0)}
+    assert got_routes == dict([route]), f"double_conv routes {got_routes}"
     err = float((got.float() - want.float()).abs().max())
     print(f"{'up_' if up_block else ''}double_conv"
-          f"{' align-corners composition' if align_corners else ''} B={b} "
+          f"{' align-corners composition' if align_corners else ''} "
+          f"{'f32 (direct) ' if f32 else ''}B={b} "
           f"{h}x{w} {c0}+{c1}->{mid}->{cout}: max|kernel-plain|={err:.6g} "
           f"differing {float((got != want).float().mean()):.6g} max|plain|="
           f"{float(want.float().abs().max()):.4g}", flush=True)
     assert got.shape == want.shape == (b, h, w, cout)
-    assert got.dtype == torch.bfloat16 and bool(torch.isfinite(got.float()).all())
-    assert err <= FLOAT_BOUND, f"double_conv kernel disagrees by {err}"
+    assert got.dtype == dtype and bool(torch.isfinite(got.float()).all())
+    assert err <= (F32_BOUND if f32 else FLOAT_BOUND), \
+        f"double_conv kernel disagrees by {err}"
     return err
 
 
@@ -340,7 +459,8 @@ CORE_LEVELS = {"inc": (8, 272, 480, 32, 0, 64, 64),
 def check_core_kernels(record) -> None:
     """Phase 2's option-core part: the five levels at b8 1080p, heights and
     widths off the 16x16 tile, a 7-row image, uneven channel counts (not
-    multiples of 16), and the align-corners composition."""
+    multiples of 16), and the align-corners composition; in f32 the five
+    levels at b2 1080p (the f32 engine's), two at b8 and the odd shapes."""
     errs = {name: check_dconv(*shape) for name, shape in CORE_LEVELS.items()}
     errs["odd_2x19x37_24-40-8"] = check_dconv(2, 19, 37, 24, 0, 40, 8)
     errs["rows7_1x7x9_32-16-16"] = check_dconv(1, 7, 9, 32, 0, 16, 16)
@@ -348,6 +468,18 @@ def check_core_kernels(record) -> None:
     errs["up_odd_1x14x22_8+24-24-8"] = check_dconv(1, 14, 22, 8, 24, 24, 8)
     errs["align_corners_2x64x120_64+64-64-64"] = check_dconv(
         2, 64, 120, 64, 64, 64, 64, align_corners=True)
+    # f32: the five levels at the f32 engine's b2 1080p, down1 and up3 at
+    # b8, and the odd shapes
+    f32 = {f"f32_{name}_b2": check_dconv(2, *shape[1:], dtype=torch.float32)
+           for name, shape in CORE_LEVELS.items()}
+    f32.update({
+        "f32_down1": check_dconv(*CORE_LEVELS["down1"], dtype=torch.float32),
+        "f32_up3": check_dconv(*CORE_LEVELS["up3"], dtype=torch.float32),
+        "f32_odd_2x19x37_24-40-8": check_dconv(2, 19, 37, 24, 0, 40, 8,
+                                               dtype=torch.float32),
+        "f32_up_odd_2x18x34_16+8-16-8": check_dconv(
+            2, 18, 34, 16, 8, 16, 8, dtype=torch.float32)})
+    record["dconv_f32_errs"] = f32
     record["dconv_errs"] = errs
     record["double_conv_max_abs_err"] = max(
         e for k, e in errs.items() if "up" not in k)
@@ -508,12 +640,14 @@ def reference_flow(engine, f1, f2, ts) -> torch.Tensor:
         return out.permute(0, 1, 3, 4, 2)
 
 
-def head_flops_bytes(b, h, w, c, nplanes, width=64, nf32=0, depthwise=False):
+def head_flops_bytes(b, h, w, c, nplanes, width=64, nf32=0, depthwise=False,
+                     elem=2):
     """Tensor-core FLOPs, f32 CUDA-core FLOPs and device bytes of the head:
     every input read once (``nf32`` of the planes besides the prediction in
-    f32, the rest bf16), the bf16 output written once, the weights read
-    once. The depthwise head's 3x3 (9 multiply-adds a channel) is its f32
-    work; its pointwise conv is a width x width GEMM."""
+    f32, the rest bf16), the output (``elem`` bytes: 2 bf16, 4 f32)
+    written once, the weights read once. The depthwise head's 3x3 (9
+    multiply-adds a channel) is its f32 work; its pointwise conv is a
+    width x width GEMM."""
     px = b * h * w
     conv2 = width * width if depthwise else 9 * width * width
     flops = 2 * px * (9 * nplanes * width + conv2 + width * c)
@@ -521,19 +655,20 @@ def head_flops_bytes(b, h, w, c, nplanes, width=64, nf32=0, depthwise=False):
     weights = 2 * (9 * nplanes * width + width + conv2 + width) \
         + 4 * (width * c + c) + (6 * 9 * width if depthwise else 0)
     byts = px * (4 * c + 4 * nf32 * c + 2 * (nplanes - c - nf32 * c)
-                 + 2 * c) + weights
+                 + elem * c) + weights
     return flops, f32_flops, byts
 
 
-def dconv_flops_bytes(b, h, w, c0, c1, mid, cout):
+def dconv_flops_bytes(b, h, w, c0, c1, mid, cout, elem=2):
     """FLOPs and device bytes of a double conv (c1 == 0) or up block: the
-    input (and ``low`` at half size) read once, the bf16 output written
-    once, the bf16 weights and biases read once."""
+    input (and ``low`` at half size) read once, the output written once,
+    the weights and biases read once, ``elem`` bytes each (2 bf16, 4
+    f32)."""
     px = b * h * w
     cin = c0 + c1
     flops = 2 * px * 9 * (cin * mid + mid * cout)
-    byts = 2 * (px * (c0 + cout) + px // 4 * c1
-                + 9 * (cin * mid + mid * cout) + mid + cout)
+    byts = elem * (px * (c0 + cout) + px // 4 * c1
+                   + 9 * (cin * mid + mid * cout) + mid + cout)
     return flops, byts
 
 
@@ -565,6 +700,8 @@ def ssim_flops_bytes(b, h, w, c):
 
 
 def _counted():
+    from ai_based_frame_interpolation_torch.ops.conv_direct import (
+        conv_direct, head_out_direct)
     from ai_based_frame_interpolation_torch.ops.dconv_fused import (
         double_conv_fused, up_double_conv_fused)
     from ai_based_frame_interpolation_torch.ops.refine import refine_head
@@ -575,20 +712,43 @@ def _counted():
 
     return {"refine_head": refine_head, "sample_fused": sample_fused,
             "ssim_eval": ssim_eval_fused, "double_conv": double_conv_fused,
-            "up_double_conv": up_double_conv_fused}
+            "up_double_conv": up_double_conv_fused,
+            "conv_direct": conv_direct, "head_out_direct": head_out_direct}
 
 
 def reset_counts() -> None:
     for fn in _counted().values():
         fn.launches = 0
+        if hasattr(fn, "routes"):
+            fn.routes.clear()
 
 
 def counts() -> dict:
     return {name: fn.launches for name, fn in _counted().items()}
 
 
+def route_counts() -> dict:
+    """The launches each wrapper that picks a route counted under it:
+    ``"refine_head w64/w32/bfloat16"`` (route/model width/dtype),
+    ``"double_conv direct"``."""
+    return {f"{name} {key}": n for name, fn in _counted().items()
+            for key, n in getattr(fn, "routes", {}).items() if n}
+
+
+# every route's launches over the main-path runs (phases 3, 4 and 6), each
+# run read once after its counts were set to 0 (main_counts)
+MAIN_ROUTES = collections.Counter()
+
+
+def main_counts() -> dict:
+    """counts() after a main-path run; its route counts go to MAIN_ROUTES."""
+    MAIN_ROUTES.update(route_counts())
+    return counts()
+
+
 NO_LAUNCHES = dict.fromkeys(("refine_head", "sample_fused", "ssim_eval",
-                             "double_conv", "up_double_conv"), 0)
+                             "double_conv", "up_double_conv", "conv_direct",
+                             "head_out_direct"), 0)
 
 
 def build(record) -> None:
@@ -642,6 +802,7 @@ def check_kernels(record) -> None:
     record["sample_fused_max_abs_err"] = max(errs)
     check_ssim_kernels(record)
     check_core_kernels(record)
+    check_head_routes(record)
 
 
 def serve_requests(engine, seed) -> dict:
@@ -676,7 +837,7 @@ def serve_requests(engine, seed) -> dict:
     for i, ans in enumerate(answers):
         assert len(ans) == nums[i] and all(
             a.shape == (256, 256, 1) and a.dtype == np.uint8 for a in ans)
-    launches = counts()
+    launches = main_counts()
     print(f"requests: 8 answered, batcher {batcher.stats}, launches "
           f"{launches}", flush=True)
     return dict(batcher.stats, launches=launches)
@@ -695,7 +856,7 @@ def unet_path(record):
     t0 = time.perf_counter()
     out = engine.interpolate_batch(f1, f2)
     main_s = time.perf_counter() - t0
-    launches = counts()
+    launches = main_counts()
     print(f"U-Net path: interpolate_batch b=8 1080x1920 -> {out.shape} "
           f"{out.dtype} in {main_s:.3f} s (first call); launches {launches}",
           flush=True)
@@ -740,7 +901,7 @@ def core_path(record, xla_out, upsample="half_pixel"):
     t0 = time.perf_counter()
     out = engine.interpolate_batch(f1, f2)
     main_s = time.perf_counter() - t0
-    launches = counts()
+    launches = main_counts()
     print(f"U-Net option core ({upsample}): interpolate_batch b=8 "
           f"1080x1920 -> {out.shape} {out.dtype} in {main_s:.3f} s (first "
           f"call); launches {launches}", flush=True)
@@ -782,7 +943,7 @@ def depthwise_path(record):
     f1, f2 = frames(8, 1080, 1920, seed=1)
     reset_counts()
     out = engine.interpolate_batch(f1, f2)
-    launches = counts()
+    launches = main_counts()
     assert launches == dict(NO_LAUNCHES, refine_head=1), \
         f"the depthwise head path launched {launches}"
     assert out.shape == (8, 1080, 1920, 1) and out.dtype == np.uint8
@@ -801,6 +962,67 @@ def depthwise_path(record):
     return engine, launches
 
 
+def f32_path(record):
+    """The f32 production U-Net engine (``compute_dtype=torch.float32``),
+    b2 1080p, on the default route (cuDNN's f32 core; the head on the
+    direct convs: 2 conv_direct + 1 head_out_direct launches) and on the
+    option core (the five outer levels on the direct convs too: 12 + 1),
+    each with the counts set to 0 just before and read just after; within
+    1 LSB of the same modules composed with the plain versions, and the
+    two routes within 1 LSB of each other. TF32 is off for the whole phase
+    (engines and plain side): with cuDNN's default TF32 the default route
+    is not an f32 computation."""
+    from ai_based_frame_interpolation_torch.config import ModelConfig
+    from ai_based_frame_interpolation_torch.infer.engine import (
+        InterpolationEngine)
+
+    f1, f2 = frames(2, 1080, 1920, seed=1)
+    outs, result = {}, {"batch": 2, "hw": [1080, 1920], "tf32": False}
+    # the head: conv1, conv2, out; the option core: two convs at each of
+    # inc, down1, down2 and up3, up4
+    head = {"refine_head direct/w64/float32": 3}
+    want_routes = {"xla": head, "pallas": dict(
+        head, **{"double_conv direct": 6, "up_double_conv direct": 4})}
+    with no_tf32():
+        for impl, expect in (("xla", dict(NO_LAUNCHES, conv_direct=2,
+                                           head_out_direct=1)),
+                             ("pallas", dict(NO_LAUNCHES, conv_direct=12,
+                                             head_out_direct=1))):
+            engine = InterpolationEngine.random_init(
+                ModelConfig(**PROD), seed=0, compute_dtype=torch.float32,
+                core_impl=impl)
+            reset_counts()
+            out = engine.interpolate_batch(f1, f2)
+            routes = route_counts()
+            launches = main_counts()
+            assert launches == expect, \
+                f"the f32 engine ({impl}) launched {launches}, not {expect}"
+            assert routes == want_routes[impl], \
+                f"the f32 engine ({impl}) routes {routes}"
+            assert out.shape == (2, 1080, 1920, 1) and out.dtype == np.uint8
+            want = reference_midpoints(engine, f1, f2,
+                                       core=impl == "pallas").cpu().numpy()
+            du = np.abs(out.astype(np.int16) - want.astype(np.int16))
+            print(f"f32 U-Net engine ({impl}): b=2 1080x1920, launches "
+                  f"{launches}; vs plain: max uint8 diff {int(du.max())}, "
+                  f"differing {float((du > 0).mean()):.6g}, mean output "
+                  f"{float(out.mean()):.3f} (TF32 off)", flush=True)
+            assert int(du.max()) <= 1
+            outs[impl] = out
+            result[impl] = {"launches": launches, "routes": routes,
+                            "max_uint8_diff_vs_plain": int(du.max()),
+                            "uint8_differing_share": float((du > 0).mean())}
+            del engine
+    dx = np.abs(outs["pallas"].astype(np.int16) - outs["xla"].astype(np.int16))
+    print(f"f32 U-Net engine: option core vs default route: max uint8 diff "
+          f"{int(dx.max())}, differing {float((dx > 0).mean()):.6g}",
+          flush=True)
+    assert int(dx.max()) <= 1
+    result["max_uint8_diff_pallas_vs_xla"] = int(dx.max())
+    record["f32_path"] = result
+    return result
+
+
 def flow_path(record):
     """The flow path: full-width flow production engine, 1080p gray 2x,
     b=8, counts set to 0 just before and read just after; then 3
@@ -815,7 +1037,7 @@ def flow_path(record):
     t0 = time.perf_counter()
     out = engine.interpolate_batch(f1, f2)
     main_s = time.perf_counter() - t0
-    launches = counts()
+    launches = main_counts()
     print(f"flow path: interpolate_batch b=8 1080x1920 -> {out.shape} "
           f"{out.dtype} in {main_s:.3f} s (first call); launches {launches}",
           flush=True)
@@ -843,7 +1065,7 @@ def flow_path(record):
              [0.3, 0.7])):
         reset_counts()
         got = np.stack(run())
-        n = counts()
+        n = main_counts()
         want = reference_flow(engine, f1[:1], f2[:1], ts)[0].cpu().numpy()
         du = int(np.abs(got.astype(np.int16) - want.astype(np.int16)).max())
         print(f"flow {name}: {got.shape}, launches {n}, max uint8 diff vs "
@@ -934,7 +1156,7 @@ def run_eval(label, engine, root, hw, expect, out_dir) -> dict:
     first = dict(decode_s=0.0, engine_s=0.0, metric_s=0.0)
     reset_counts()
     res, batches = evaluate(first)
-    launches = counts()
+    launches = main_counts()
     print(f"eval {label}: {res['num_triplets']} triplets, launches "
           f"{launches} (first call {first['total_s']:.3f} s)", flush=True)
     assert launches == expect, f"eval {label}: launches {launches} != {expect}"
@@ -1116,25 +1338,30 @@ def time_engine(engine, label, smi, sizes) -> dict:
     return out
 
 
-def time_head(smi, width, nextra, nf32, depthwise=False) -> dict:
-    """The head at 1x1088x1920 gray: kernel, plain, library (cuDNN bf16
-    channels_last convs with fused bias; timed here only) and bound."""
+def time_head(smi, width, nextra, nf32, depthwise=False,
+              dtype=torch.bfloat16) -> dict:
+    """The head at 1x1088x1920 gray on the route ``head_route`` picks:
+    kernel, plain, library (cuDNN channels_last convs in ``dtype`` with
+    fused bias; timed here only) and bound. f32 runs with TF32 off (the
+    same function on every side); its bound is f32 FMAs on the CUDA
+    cores."""
     from ai_based_frame_interpolation_torch.ops.refine import (
         pack_head_weights, refine_head, refine_head_reference)
 
     b, h, w, c = 1, 1088, 1920, 1
     y, planes, params = head_inputs(b, h, w, c, nextra, width, nf32=nf32,
                                     depthwise=depthwise)
-    packed = pack_head_weights(params)
-    k_ms = cuda_ms(lambda: refine_head(y, planes, params, packed=packed), 10)
-    p_ms = cuda_ms(lambda: refine_head_reference(y, planes, params), 10)
+    f32 = dtype == torch.float32
+    if f32:
+        planes = [p.float() for p in planes]
+    packed = pack_head_weights(params, dtype)
     cl = torch.channels_last
     pred = y.permute(0, 3, 1, 2).contiguous(memory_format=cl)
-    z0 = torch.cat([pred.to(torch.bfloat16)] + [
-        p.permute(0, 3, 1, 2).to(torch.bfloat16) for p in planes],
+    z0 = torch.cat([pred.to(dtype)] + [
+        p.permute(0, 3, 1, 2).to(dtype) for p in planes],
         1).contiguous(memory_format=cl)
-    lw = {n: {"weight": p["weight"].to(torch.bfloat16).contiguous(
-        memory_format=cl), "bias": p["bias"].to(torch.bfloat16)}
+    lw = {n: {"weight": p["weight"].to(dtype).contiguous(
+        memory_format=cl), "bias": p["bias"].to(dtype)}
         for n, p in params.items()}
     f = torch.nn.functional
 
@@ -1152,71 +1379,103 @@ def time_head(smi, width, nextra, nf32, depthwise=False) -> dict:
         return pred + f.conv2d(z, lw["refine_out"]["weight"],
                                lw["refine_out"]["bias"])
 
-    l_ms = cuda_ms(library, 10)
+    with no_tf32():
+        k_ms = cuda_ms(lambda: refine_head(y, planes, params, dtype, packed),
+                       10)
+        p_ms = cuda_ms(lambda: refine_head_reference(y, planes, params,
+                                                     dtype), 10)
+        l_ms = cuda_ms(library, 10)
     nplanes = (1 + nextra) * c
-    flops, f32_flops, byts = head_flops_bytes(b, h, w, c, nplanes, width,
-                                              nf32, depthwise)
+    flops, f32_flops, byts = head_flops_bytes(
+        b, h, w, c, nplanes, width, nextra if f32 else nf32, depthwise,
+        elem=4 if f32 else 2)
+    if f32:
+        flops, f32_flops = 0, flops + f32_flops
     bound_ms, bound_by = bound(flops, byts, H100_BF16_FLOPS, f32_flops)
     print(f"[{smi}] refine_head{' depthwise' if depthwise else ''} "
           f"1x1088x1920 gray {nplanes} planes ({nf32} "
-          f"f32) w{width}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
-          f"library (cuDNN bf16 channels_last convs) {l_ms:.4f} ms, bound "
-          f"{bound_ms:.4f} ms ({bound_by}: {flops / 1e9:.2f} GFLOP bf16, "
-          f"{f32_flops / 1e9:.2f} GFLOP f32, {byts / 1e6:.2f} MB)", flush=True)
+          f"f32) w{width} {str(dtype)[6:]}: kernel {k_ms:.4f} ms, plain "
+          f"{p_ms:.4f} ms, library (cuDNN channels_last convs) {l_ms:.4f} "
+          f"ms, bound {bound_ms:.4f} ms ({bound_by}: {flops / 1e9:.2f} GFLOP "
+          f"bf16, {f32_flops / 1e9:.2f} GFLOP f32, {byts / 1e6:.2f} MB)",
+          flush=True)
     return {"ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops,
-            "bytes": byts}
+            "f32_flops": f32_flops, "bytes": byts}
 
 
-def time_dconv(smi, name, shape) -> dict:
+def time_dconv(smi, name, shape, dtype=torch.bfloat16) -> dict:
     """One option-core level (``CORE_LEVELS``): kernel (weights packed
-    once, as the engine packs them), plain, library (cuDNN's bf16
+    once, as the engine packs them), plain, library (cuDNN's
     channels_last conv pair with fused bias and ReLU; for the up block
-    after ``F.interpolate`` and ``torch.cat``; timed here only) and
-    bound."""
+    after ``F.interpolate`` and ``torch.cat``; timed here only) and bound;
+    in bf16 also the fused kernel's time per weight chunk (ms / tiles per
+    SM / chunks per tile, from the launch plan the kernel picks). f32: the
+    direct-conv route, TF32 off on every side, bound by f32 FMAs."""
     from ai_based_frame_interpolation_torch.ops.dconv_fused import (
-        double_conv_fused, double_conv_reference, pack_dconv_weights,
-        up_double_conv_fused, up_double_conv_reference)
+        double_conv_fused, double_conv_reference, kernel_plan,
+        pack_dconv_weights, up_double_conv_fused, up_double_conv_reference)
 
     b, h, w, c0, c1, mid, cout = shape
+    f32 = dtype == torch.float32
     x, low, wts = dconv_inputs(*shape, seed=5)
-    packed = pack_dconv_weights(*wts, split=c0 if c1 else None)
+    if f32:
+        x, low = x.float(), None if low is None else low.float()
+    packed = pack_dconv_weights(*wts, split=c0 if c1 else None,
+                                compute_dtype=dtype)
     f = torch.nn.functional
     cl = torch.channels_last
-    w1, b1, w2, b2 = (t.to(torch.bfloat16) for t in wts)
+    w1, b1, w2, b2 = (t.to(dtype) for t in wts)
     w1, w2 = (t.contiguous(memory_format=cl) for t in (w1, w2))
     xl = x.permute(0, 3, 1, 2)
-    if c1:
-        lowl = low.permute(0, 3, 1, 2)
-        k_ms = cuda_ms(lambda: up_double_conv_fused(x, low, *wts,
-                                                    packed=packed), 10)
-        p_ms = cuda_ms(lambda: up_double_conv_reference(x, low, *wts), 5)
+    with no_tf32():
+        if c1:
+            lowl = low.permute(0, 3, 1, 2)
+            k_ms = cuda_ms(lambda: up_double_conv_fused(
+                x, low, *wts, dtype, packed), 10)
+            p_ms = cuda_ms(lambda: up_double_conv_reference(x, low, *wts,
+                                                            dtype), 5)
 
-        def first():
-            up = f.interpolate(lowl, scale_factor=2, mode="bilinear",
-                               align_corners=False)
-            return torch.cat([xl, up], 1)
-    else:
-        k_ms = cuda_ms(lambda: double_conv_fused(x, *wts, packed=packed), 10)
-        p_ms = cuda_ms(lambda: double_conv_reference(x, *wts), 5)
-        first = lambda: xl  # noqa: E731
+            def first():
+                up = f.interpolate(lowl, scale_factor=2, mode="bilinear",
+                                   align_corners=False)
+                return torch.cat([xl, up], 1)
+        else:
+            k_ms = cuda_ms(lambda: double_conv_fused(x, *wts, dtype, packed),
+                           10)
+            p_ms = cuda_ms(lambda: double_conv_reference(x, *wts, dtype), 5)
+            first = lambda: xl  # noqa: E731
 
-    def library():
-        z = f.relu(f.conv2d(first(), w1, b1, padding=1))
-        return f.relu(f.conv2d(z, w2, b2, padding=1))
+        def library():
+            z = f.relu(f.conv2d(first(), w1, b1, padding=1))
+            return f.relu(f.conv2d(z, w2, b2, padding=1))
 
-    l_ms = cuda_ms(library, 10)
-    flops, byts = dconv_flops_bytes(*shape)
-    bound_ms, bound_by = bound(flops, byts, H100_BF16_FLOPS)
-    print(f"[{smi}] {'up_' if c1 else ''}double_conv {name} B={b} {h}x{w} "
+        l_ms = cuda_ms(library, 10)
+    flops, byts = dconv_flops_bytes(*shape, elem=4 if f32 else 2)
+    bound_ms, bound_by = bound(0 if f32 else flops, byts, H100_BF16_FLOPS,
+                               flops if f32 else 0)
+    out = {"ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops,
+           "bytes": byts}
+    per_chunk = ""
+    if not f32:
+        plan = kernel_plan(c0, c1, mid, cout)
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        tiles = b * -(-h // plan["th"]) * -(-w // 16)
+        out.update(plan, tiles=tiles, tiles_per_sm=tiles / sms,
+                   us_per_chunk=1e3 * k_ms / (tiles / sms) / plan["chunks"])
+        per_chunk = (f"; {tiles} {plan['th']}x16 tiles, "
+                     f"{tiles / sms:.2f} per SM, {plan['chunks']} chunks per "
+                     f"tile, {'resident' if plan['resident'] else str(plan['stages']) + '-stage ring'}"
+                     f": {out['us_per_chunk']:.3f} us per chunk")
+    print(f"[{smi}] {'up_' if c1 else ''}double_conv {name} "
+          f"{'f32 (direct) ' if f32 else ''}B={b} {h}x{w} "
           f"{c0}+{c1}->{mid}->{cout}: kernel {k_ms:.4f} ms, plain "
-          f"{p_ms:.4f} ms, library (cuDNN bf16 channels_last conv pair"
+          f"{p_ms:.4f} ms, library (cuDNN channels_last conv pair"
           f"{', F.interpolate + cat' if c1 else ''}) {l_ms:.4f} ms, bound "
           f"{bound_ms:.4f} ms ({bound_by}: {flops / 1e9:.2f} GFLOP, "
-          f"{byts / 1e6:.2f} MB)", flush=True)
-    return {"ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops,
-            "bytes": byts}
+          f"{byts / 1e6:.2f} MB){per_chunk}", flush=True)
+    return out
 
 
 def summed(parts) -> dict:
@@ -1274,6 +1533,7 @@ def main() -> int:
     del unet_out
     core_path(record, None, upsample="align_corners")
     dw, dw_launches = depthwise_path(record)
+    f32_path(record)
     flow, flow_launches = flow_path(record)    # 4.
     evals = eval_path(record, unet, flow)      # 6. (before 5 frees them)
 
@@ -1298,6 +1558,18 @@ def main() -> int:
         [timings[f"dconv_{n}_b8"] for n in ("inc", "down1", "down2")])
     timings["up_double_conv_b8"] = summed(
         [timings[f"dconv_{n}_b8"] for n in ("up3", "up4")])
+    for name in ("down1", "up3"):
+        timings[f"dconv_{name}_b8_f32"] = time_dconv(
+            smi, name, CORE_LEVELS[name], torch.float32)
+    for key, args in (
+            ("refine_head_w32_padded", (32, 2, 0)),
+            ("refine_head_w8_padded", (8, 2, 0)),
+            ("refine_head_dw16_padded", (16, 2, 0, True)),
+            ("refine_head_direct_bf16_w128", (128, 2, 0)),
+            ("refine_head_direct_f32_w64", (64, 2, 0, False, torch.float32)),
+            ("refine_head_direct_f32_dw64", (64, 2, 0, True, torch.float32)),
+            ("refine_head_direct_f32_w16", (16, 4, 2, False, torch.float32))):
+        timings[f"{key}_1088x1920"] = time_head(smi, *args)
     timings["sample_fused_1088x1920"] = time_sampler(smi)
     timings["ssim_eval_8x256x256"] = time_ssim(smi, 8, 256, 256)
     timings["ssim_eval_8x1080x1920"] = time_ssim(smi, 8, 1080, 1920)
@@ -1321,6 +1593,9 @@ def main() -> int:
     pallas = "ai_based_frame_interpolation_tpu/ops/pallas/"
     kernels = []
     ssim_errs = record["ssim_eval_errs"]
+    head_errs = record["head_route_errs"]
+    f32_errs = record["dconv_f32_errs"]
+    record["main_routes"] = dict(MAIN_ROUTES)
     for name, cu, replaces, launches, err, tm in (
             ("refine_head_w64", "refine_head.cu", "refine_fused.py:417",
              unet_launches["refine_head"],
@@ -1347,7 +1622,50 @@ def main() -> int:
              record["up_double_conv_max_abs_err"], "up_double_conv_b8"),
             ("refine_head_dw", "refine_head.cu", "refine_fused.py:417",
              dw_launches["refine_head"], record["refine_head_dw_max_abs_err"],
-             "refine_head_dw_1088x1920")):
+             "refine_head_dw_1088x1920"),
+            # the routes beside the production instances: launches the
+            # wrappers counted under each route over the main-path runs
+            # (MAIN_ROUTES; 0 where no engine of the smoke takes the route)
+            ("refine_head_w32_padded", "refine_head.cu", "refine_fused.py:417",
+             MAIN_ROUTES["refine_head w64/w32/bfloat16"],
+             head_errs["w32_bfloat16_1x1088x1920"],
+             "refine_head_w32_padded_1088x1920"),
+            ("refine_head_w8_padded", "refine_head.cu", "refine_fused.py:417",
+             MAIN_ROUTES["refine_head w16/w8/bfloat16"],
+             head_errs["w8_bfloat16_1x1088x1920"],
+             "refine_head_w8_padded_1088x1920"),
+            ("refine_head_dw16_padded", "refine_head.cu",
+             "refine_fused.py:417", MAIN_ROUTES["refine_head dw64/dw16/bfloat16"],
+             head_errs["dw16_bfloat16_1x1088x1920"],
+             "refine_head_dw16_padded_1088x1920"),
+            ("refine_head_direct_bf16_w128", "conv_direct.cu",
+             "refine_fused.py:417",
+             MAIN_ROUTES["refine_head direct/w128/bfloat16"],
+             head_errs["w128_bfloat16_1x1088x1920"],
+             "refine_head_direct_bf16_w128_1088x1920"),
+            ("refine_head_direct_f32_w64", "conv_direct.cu",
+             "refine_fused.py:417",
+             MAIN_ROUTES["refine_head direct/w64/float32"],
+             head_errs["w64_float32_1x1088x1920"],
+             "refine_head_direct_f32_w64_1088x1920"),
+            ("refine_head_direct_f32_dw64", "conv_direct.cu",
+             "refine_fused.py:417",
+             MAIN_ROUTES["refine_head direct/dw64/float32"],
+             head_errs["dw64_float32_1x1088x1920"],
+             "refine_head_direct_f32_dw64_1088x1920"),
+            ("refine_head_direct_f32_w16", "conv_direct.cu",
+             "refine_fused.py:417",
+             MAIN_ROUTES["refine_head direct/w16/float32"],
+             head_errs["w16_float32_1x1088x1920"],
+             "refine_head_direct_f32_w16_1088x1920"),
+            ("double_conv_direct_f32", "conv_direct.cu", "dconv_fused.py:164",
+             MAIN_ROUTES["double_conv direct"],
+             max(e for k, e in f32_errs.items() if "up" not in k),
+             "dconv_down1_b8_f32"),
+            ("up_double_conv_direct_f32", "conv_direct.cu",
+             "dconv_fused.py:411", MAIN_ROUTES["up_double_conv direct"],
+             max(e for k, e in f32_errs.items() if "up" in k),
+             "dconv_up3_b8_f32")):
         t = timings[tm]
         kernels.append({"name": name, "route": "cuda", "source": src + cu,
                         "replaces": pallas + replaces, "launches": launches,

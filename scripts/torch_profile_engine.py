@@ -2,7 +2,7 @@
 
     python3 scripts/torch_profile_engine.py [--arch unet|flow] [--batch 8]
                                            [--calls 3] [--core-impl xla]
-                                           [--depthwise]
+                                           [--depthwise] [--dtype float32]
 
 Runs a production engine of the PyTorch port (random weights from seed 0)
 on gray 1080p 2x batches on the CUDA card, profiles a few warm calls, and
@@ -11,7 +11,9 @@ window, then the same as one JSON line. ``--arch unet`` is the production
 U-Net (s2d 4, base 64, head 64); ``--arch flow`` the flow production
 config (base 32, flow_scale 4, head 16, shifts warp, max_flow 16). For the
 U-Net, ``--core-impl`` is the engine's ``core_impl`` (``pallas``: the
-option core) and ``--depthwise`` selects the depthwise head. Needs a CUDA
+option core) and ``--depthwise`` selects the depthwise head. ``--dtype``
+is the engine's compute dtype; ``float32`` runs with TF32 off (cuDNN's f32
+convs use TF32 by default, which is not an f32 computation). Needs a CUDA
 card; fails without one.
 """
 
@@ -38,6 +40,8 @@ def main(argv=None) -> int:
     p.add_argument("--core-impl", choices=("xla", "auto", "pallas"),
                    default="xla")
     p.add_argument("--depthwise", action="store_true")
+    p.add_argument("--dtype", choices=("bfloat16", "float32"),
+                   default="bfloat16")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("torch_profile_engine: needs a CUDA card", file=sys.stderr)
@@ -56,7 +60,11 @@ def main(argv=None) -> int:
         if args.arch == "unet" else \
         ModelConfig(arch="flow", base_width=32, flow_scale=4, refine_width=16,
                     warp_impl="shifts", max_flow=16)
-    engine = InterpolationEngine.random_init(cfg, seed=0,
+    dtype = getattr(torch, args.dtype)
+    if dtype == torch.float32:
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+    engine = InterpolationEngine.random_init(cfg, seed=0, compute_dtype=dtype,
                                              core_impl=args.core_impl)
     gen = np.random.default_rng(0)
     shape = (args.batch, 1080, 1920, 1)
@@ -87,7 +95,8 @@ def main(argv=None) -> int:
     per_call = wall_ms / args.calls
     label = args.arch if args.arch == "flow" else (
         f"unet core_impl={args.core_impl}"
-        f"{' depthwise head' if args.depthwise else ''}")
+        f"{' depthwise head' if args.depthwise else ''}") + (
+        " f32 (TF32 off)" if dtype == torch.float32 else "")
     lines = [f"[{card}] {label} engine 1080p gray 2x b={args.batch}: "
              f"{per_call:.3f} ms "
              f"per call (host clock, {args.calls} calls), device busy "
@@ -99,7 +108,8 @@ def main(argv=None) -> int:
     print("\n".join(lines), flush=True)
     print(json.dumps({"card": card, "arch": args.arch,
                       "core_impl": args.core_impl,
-                      "depthwise": args.depthwise, "batch": args.batch,
+                      "depthwise": args.depthwise, "dtype": args.dtype,
+                      "batch": args.batch,
                       "ms_per_call": per_call, "device_busy_ms": busy,
                       "kernels": rows}), flush=True)
     return 0 if rows else 1

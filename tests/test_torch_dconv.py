@@ -173,24 +173,55 @@ def test_upsample_nhwc_is_the_half_pixel_grid(dtype):
     np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=tol)
 
 
+def _unchunk(flat, n_total, k_ch):
+    """The chunk stream back as [9][n_total][k_ch], each chunk found where
+    ``csrc/double_conv.cu``'s ``Stream::chunk`` computes it (N pass p,
+    tap, K chunk j of a 64x64 grid; rows of kw + 8, the last 8 zero)."""
+    kch = (k_ch + 63) // 64
+    row = k_ch + 8 * kch
+    out = torch.zeros(9, n_total, k_ch)
+    for q in range((n_total + 63) // 64 * 9 * kch):
+        p, tap, j = q // (9 * kch), q % (9 * kch) // kch, q % kch
+        nw, kw = min(64, n_total - 64 * p), min(64, k_ch - 64 * j)
+        off = (p * 64 * 9 + tap * nw) * row + nw * j * 72
+        block = flat[off:off + nw * (kw + 8)].reshape(nw, kw + 8)
+        assert not block[:, kw:].any()
+        out[tap, 64 * p:64 * p + nw, 64 * j:64 * j + kw] = block[:, :kw]
+    assert flat.numel() == 9 * n_total * row
+    return out
+
+
 @pytest.mark.parametrize("split", [None, 8, 24])
 def test_packed_weights_are_the_kernel_layout(split):
     """The layouts a model packs once (``pack_dconv_weights``) are what the
-    kernel reads: the double conv computed from them as the kernel indexes
-    them (w1 as (tap, out, in) over the input padded per part to 16
-    channels, w2 as (tap, out, in) over mid padded to 16) gives the plain
-    version, in f32."""
-    cin, mid, cout = 32, 24, 8
+    kernel reads: w1 as (tap, out, in) over the input padded per part to
+    16 channels and w2 as (tap, out, in) over mid padded to 16, each stored
+    as the chunk stream the kernel's bulk copies take (read back here as
+    the kernel locates each chunk). The double conv computed from them
+    gives the plain version, in f32."""
+    _check_layout(split, 32, 24)
+
+
+def test_packed_weights_span_n_passes_and_k_chunks():
+    """The same where the streams hold two N passes and two K chunks (72
+    inputs, 80 mid channels): a last pass of 16 rows, a last chunk of 8."""
+    _check_layout(None, 72, 80)
+
+
+def _check_layout(split, cin, mid):
+    cout = 8
     wts = [w.bfloat16().float() for w in _torch_weights(
         *_weights(cin, mid, cout, seed=9))]       # exact in bf16
     x = torch.from_numpy(_x((1, 6, 10, cin), seed=10))
-    kw = {k: (v.float() if torch.is_tensor(v) else v)
-          for k, v in pack_dconv_weights(*wts, split=split).items()}
+    packed = pack_dconv_weights(*wts, split=split)
+    assert packed["w1"].dtype == torch.bfloat16 and packed["w1"].dim() == 1
     parts = [(0, cin)] if split is None else [(0, split), (split, cin)]
     kin = sum((hi - lo + 15) // 16 * 16 for lo, hi in parts)
-    assert tuple(kw["w1"].shape) == (9, 32, kin)
-    assert tuple(kw["w2"].shape) == (9, 16, 32)
-    assert tuple(kw["b1"].shape) == (32,) and tuple(kw["b2"].shape) == (16,)
+    midp = (mid + 15) // 16 * 16
+    kw = {"w1": _unchunk(packed["w1"].float(), midp, kin),
+          "w2": _unchunk(packed["w2"].float(), 16, midp),
+          "b1": packed["b1"].float(), "b2": packed["b2"].float()}
+    assert tuple(kw["b1"].shape) == (midp,) and tuple(kw["b2"].shape) == (16,)
 
     def pad_parts(z):                 # the kernel's shared-memory pixel row
         return torch.cat([torch.nn.functional.pad(
@@ -213,8 +244,10 @@ def test_packed_weights_are_the_kernel_layout(split):
 
 
 def test_check_packed_refuses_what_the_kernel_cannot_read():
-    """The kernel reads only weights packed once for its own split: none,
-    another split, or another width is refused before a launch."""
+    """The kernel reads only weights packed once for its own split, as the
+    chunk stream: none, another split, another width, the (tap, out, in)
+    tensors unchunked, or the f32 route's layout is refused before a
+    launch."""
     w1, b1, w2, b2 = _torch_weights(*_weights(32, 24, 8, seed=16))
     check_packed(pack_dconv_weights(w1, b1, w2, b2, split=8), w1, w2, 8, 24, 8)
     check_packed(pack_dconv_weights(w1, b1, w2, b2), w1, w2, 32, 0, None)
@@ -229,19 +262,33 @@ def test_check_packed_refuses_what_the_kernel_cannot_read():
     with pytest.raises(ValueError, match="do not match"):
         check_packed(pack_dconv_weights(w1n, b1n, w2n, b2n), w1, w2, 32, 0,
                      None)
+    packed = pack_dconv_weights(w1, b1, w2, b2)
+    unchunked = dict(packed, w1=_unchunk(packed["w1"].float(), 32, 32)
+                     .bfloat16(), w2=_unchunk(packed["w2"].float(), 16, 32)
+                     .bfloat16())
+    with pytest.raises(ValueError, match="do not match"):
+        check_packed(unchunked, w1, w2, 32, 0, None)
+    with pytest.raises(ValueError, match="do not match"):
+        check_packed(pack_dconv_weights(w1, b1, w2, b2,
+                                        compute_dtype=torch.float32),
+                     w1, w2, 32, 0, None)
 
 
 def test_cpu_wrappers_run_the_plain_versions_without_launching():
     wts = _torch_weights(*_weights(16, 8, 8, seed=11))
     x = torch.from_numpy(_x((1, 8, 12, 16), seed=12))
     skip, low = (torch.from_numpy(a) for a in _up_inputs(1, 8, 12, 8, 8))
-    before = (double_conv_fused.launches, up_double_conv_fused.launches)
+    def counts():
+        return (double_conv_fused.launches, up_double_conv_fused.launches,
+                dict(double_conv_fused.routes),
+                dict(up_double_conv_fused.routes))
+
+    before = counts()
     assert torch.equal(double_conv_fused(x, *wts),
                        double_conv_reference(x, *wts))
     assert torch.equal(up_double_conv_fused(skip, low, *wts),
                        up_double_conv_reference(skip, low, *wts))
-    assert (double_conv_fused.launches, up_double_conv_fused.launches) == \
-        before
+    assert counts() == before
 
 
 @pytest.mark.cuda
@@ -252,9 +299,10 @@ def test_kernels_match_plain_on_the_card():
         pytest.skip("needs an NVIDIA card and nvcc")
     wts = [w.cuda() for w in _torch_weights(*_weights(24, 40, 8, seed=13))]
     x = torch.from_numpy(_x((2, 19, 37, 24), seed=14)).cuda()
-    n = double_conv_fused.launches
+    n = (double_conv_fused.launches, double_conv_fused.routes["fused"])
     got = double_conv_fused(x, *wts, packed=pack_dconv_weights(*wts))
-    assert double_conv_fused.launches == n + 1
+    assert (double_conv_fused.launches,
+            double_conv_fused.routes["fused"]) == (n[0] + 1, n[1] + 1)
     _bf16_close(got.float().cpu().numpy(),
                 double_conv_reference(x, *wts).float().cpu().numpy())
     wts = [w.cuda() for w in _torch_weights(*_weights(24, 16, 8, seed=15))]

@@ -23,6 +23,7 @@ def test_importing_the_port_loads_no_jax():
         "import ai_based_frame_interpolation_torch.models.flow\n"
         "import ai_based_frame_interpolation_torch.ops.warp_fused\n"
         "import ai_based_frame_interpolation_torch.ops.dconv_fused\n"
+        "import ai_based_frame_interpolation_torch.ops.conv_direct\n"
         "import ai_based_frame_interpolation_torch.models.core_t\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "assert not bad, bad\n")

@@ -21,7 +21,8 @@ import torch
 
 from ai_based_frame_interpolation_torch.models.bridge import flax_to_state_dict
 from ai_based_frame_interpolation_torch.ops.refine import (
-    pack_head_weights, refine_head, refine_head_reference)
+    head_route, pack_head_weights, refine_head, refine_head_direct,
+    refine_head_reference)
 from ai_based_frame_interpolation_tpu.config import ModelConfig as JConfig
 from ai_based_frame_interpolation_tpu.models import build_model as j_build
 from ai_based_frame_interpolation_tpu.ops.pallas.refine_fused import (
@@ -120,11 +121,11 @@ def test_reference_matches_flax_head(dtype):
 def test_cpu_wrapper_runs_the_plain_version_without_launching():
     fp = _head_params(3, 1, width=64)
     y, planes = _inputs(1, 16, 16, 1, 2)
-    before = refine_head.launches
+    before = (refine_head.launches, dict(refine_head.routes))
     args = (torch.from_numpy(y), [torch.from_numpy(p) for p in planes],
             _torch_params(fp), torch.bfloat16)
     assert torch.equal(refine_head(*args), refine_head_reference(*args))
-    assert refine_head.launches == before
+    assert (refine_head.launches, dict(refine_head.routes)) == before
 
 
 @pytest.mark.parametrize("c,nextra,width", [(1, 2, 64), (1, 4, 16),
@@ -237,12 +238,12 @@ def test_packed_depthwise_weights_are_the_kernel_layout():
 def test_cpu_wrapper_runs_the_plain_depthwise_head_without_launching():
     fp = _dw_head_params(3, 1, width=64)
     y, planes = _inputs(1, 16, 16, 1, 2)
-    before = refine_head.launches
+    before = (refine_head.launches, dict(refine_head.routes))
     args = (torch.from_numpy(y), [torch.from_numpy(p) for p in planes],
             _torch_params(fp), torch.bfloat16)
     assert torch.equal(refine_head(*args, packed=pack_head_weights(args[2])),
                        refine_head_reference(*args))
-    assert refine_head.launches == before
+    assert (refine_head.launches, dict(refine_head.routes)) == before
 
 
 def test_depthwise_engine_matches_jax():
@@ -270,3 +271,180 @@ def test_depthwise_engine_matches_jax():
     got, want = teng.interpolate_batch(f1, f2), jeng.interpolate_batch(f1, f2)
     assert got.shape == want.shape and got.dtype == np.uint8
     assert int(np.abs(got.astype(np.int16) - want.astype(np.int16)).max()) <= 1
+
+
+def _ordered_head(y, planes, params, cdt):
+    """The plain head with every sum taken in one fixed order (tap, then
+    input channel, one f32 multiply-add after another), the dtype's
+    rounding points as ``refine_head_reference``'s: appending zero
+    channels to a conv's input or output cannot change a bit of it, where
+    a library conv may block the channels differently at another width."""
+    def conv(z, p, groups=1):
+        w = p["weight"].to(cdt).float()
+        k = w.shape[-1]
+        zp = torch.nn.functional.pad(z.float(), (0, 0, k // 2, k // 2,
+                                                 k // 2, k // 2))
+        h, wd = z.shape[1:3]
+        acc = torch.zeros(*z.shape[:3], w.shape[0])
+        for dy in range(k):
+            for dx in range(k):
+                win = zp[:, dy:dy + h, dx:dx + wd]
+                if groups > 1:
+                    acc = acc + win * w[:, 0, dy, dx]
+                    continue
+                for i in range(z.shape[-1]):
+                    acc = acc + win[..., i:i + 1] * w[:, i, dy, dx]
+        return acc.to(cdt) + p["bias"].to(cdt)
+
+    z = torch.cat([y.to(cdt)] + [p.to(cdt) for p in planes], -1)
+    z = torch.relu(conv(z, params["refine1"]))
+    if "refine2" in params:
+        z = torch.relu(conv(z, params["refine2"]))
+    else:
+        z = conv(z, params["refine2_dw"], groups=z.shape[-1])
+        z = torch.relu(conv(z, params["refine2_pw"]))
+    delta = conv(z.float(), {k: v.float() for k, v in
+                             params["refine_out"].items()})
+    return (y.float() + delta).to(cdt)
+
+
+@pytest.mark.parametrize("width,depthwise,dtype", [
+    (w, dw, dt) for w, dw in ((4, False), (8, False), (32, False),
+                              (16, True))
+    for dt in ("float32", "bfloat16")])
+def test_padded_packing_is_exact(width, depthwise, dtype):
+    """A bf16 head narrower than its kernel instance is packed with zeros
+    up to the instance's width (16 or 64): the head rebuilt from the padded
+    packed weights equals the unpadded head bit for bit, in f32 and bf16
+    (a padded channel carries relu(0) = 0 and adds exact zeros), with the
+    sums in one fixed order; the plain head (a library conv) agrees bit
+    for bit in bf16 and within 1e-6 in f32."""
+    c, nextra = 1, 2
+    nplanes = (1 + nextra) * c
+    fp = _dw_head_params(nplanes, c, width) if depthwise else \
+        _head_params(nplanes, c, width)
+    params = {n: {k: v.bfloat16().float() for k, v in p.items()}
+              for n, p in _torch_params(fp).items()}
+    kw = {k: v.float() for k, v in pack_head_weights(params).items()}
+    wd = 64 if depthwise or width > 16 else 16
+    assert tuple(kw["w1"].shape) == (wd, 9 * nplanes)
+    padded = {
+        "refine1": {"weight": kw["w1"].reshape(wd, 3, 3, nplanes)
+                    .permute(0, 3, 1, 2), "bias": kw["b1"]},
+        "refine_out": {"weight": kw["w3"].t().reshape(c, wd, 1, 1),
+                       "bias": kw["b3"]}}
+    if depthwise:
+        padded["refine2_dw"] = {"weight": kw["wdw"].t().reshape(wd, 1, 3, 3),
+                                "bias": kw["bdw"]}
+        padded["refine2_pw"] = {"weight": kw["wpw"].reshape(wd, wd, 1, 1),
+                                "bias": kw["bpw"]}
+    else:
+        padded["refine2"] = {"weight": kw["w2"].reshape(3, 3, wd, wd)
+                             .permute(2, 3, 0, 1), "bias": kw["b2"]}
+    y, planes = _inputs(1, 12, 20, c, nextra, seed=7)
+    y, planes = torch.from_numpy(y), [torch.from_numpy(p) for p in planes]
+    cdt = getattr(torch, dtype)
+    assert torch.equal(_ordered_head(y, planes, padded, cdt),
+                       _ordered_head(y, planes, params, cdt))
+    got = refine_head_reference(y, planes, padded, cdt)
+    want = refine_head_reference(y, planes, params, cdt)
+    if dtype == "bfloat16":
+        assert torch.equal(got, want)
+    else:
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0,
+                                   atol=1e-6)
+
+
+def test_head_route():
+    """Each (width, compute dtype, depthwise) goes to its documented
+    kernel: bf16 dense widths 1-16 to the w16 instance, 17-64 to w64,
+    depthwise 1-64 to the depthwise instance, wider bf16 heads and every
+    f32 head to the direct convs; another dtype raises."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    table = {(1, bf16, False): "w16", (4, bf16, False): "w16",
+             (16, bf16, False): "w16", (17, bf16, False): "w64",
+             (32, bf16, False): "w64", (64, bf16, False): "w64",
+             (128, bf16, False): "direct", (16, bf16, True): "dw64",
+             (64, bf16, True): "dw64", (96, bf16, True): "direct",
+             (16, f32, False): "direct", (64, f32, False): "direct",
+             (64, f32, True): "direct"}
+    for (w, dt, dw), route in table.items():
+        assert head_route(w, dt, dw) == route, (w, dt, dw)
+    with pytest.raises(ValueError, match="bf16 or f32"):
+        head_route(64, torch.float16, False)
+
+
+@pytest.mark.parametrize("width,depthwise,dtype", [
+    (64, False, "float32"), (16, True, "float32"), (96, False, "bfloat16")])
+def test_direct_head_composition_matches_plain(width, depthwise, dtype):
+    """The direct route's composition (conv, conv or depthwise+pointwise,
+    then the f32 out conv; here on the kernels' plain versions) against
+    the plain head: f32 within 1e-5; bf16 within one bf16 ulp at |x| < 2
+    (the same rounding points, the residual summed in another order)."""
+    c, nextra = 1, 2
+    nplanes = (1 + nextra) * c
+    fp = _dw_head_params(nplanes, c, width) if depthwise else \
+        _head_params(nplanes, c, width)
+    params = _torch_params(fp)
+    cdt = getattr(torch, dtype)
+    packed = pack_head_weights(params, cdt)
+    assert tuple(packed["w1"].shape) == (9, nplanes, width)
+    y, planes = _inputs(1, 12, 20, c, nextra, seed=8)
+    y, planes = torch.from_numpy(y), [torch.from_numpy(p) for p in planes]
+    got = refine_head_direct(y, planes, packed, cdt)
+    want = refine_head_reference(y, planes, params, cdt)
+    assert got.dtype == cdt and got.shape == want.shape
+    atol = 1e-5 if dtype == "float32" else 2 ** -7
+    np.testing.assert_allclose(got.float().numpy(), want.float().numpy(),
+                               rtol=0, atol=atol)
+
+
+@pytest.mark.cuda
+def test_every_head_route_matches_plain_on_the_card():
+    """On the card (skips here): padded heads (w8, w32, depthwise w16) on
+    the fused instances, the bf16 w128 head and the f32 heads on the
+    direct convs, each within one bf16 ulp at the output's magnitude (f32:
+    1e-4, TF32 off) of the plain head, with its launches counted."""
+    from ai_based_frame_interpolation_torch.ops.conv_direct import (
+        conv_direct, head_out_direct)
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card and nvcc")
+    c, nextra = 1, 2
+    nplanes = (1 + nextra) * c
+    y, planes = _inputs(2, 40, 72, c, nextra, seed=9)
+    y = torch.from_numpy(y).cuda()
+    planes = [torch.from_numpy(p).cuda().bfloat16() for p in planes]
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for width, dw, dt in ((8, False, torch.bfloat16),
+                              (32, False, torch.bfloat16),
+                              (16, True, torch.bfloat16),
+                              (128, False, torch.bfloat16),
+                              (64, False, torch.float32),
+                              (64, True, torch.float32)):
+            fp = _dw_head_params(nplanes, c, width) if dw else \
+                _head_params(nplanes, c, width)
+            params = {n: {k: v.cuda() for k, v in p.items()}
+                      for n, p in _torch_params(fp).items()}
+            route = head_route(width, dt, dw)
+            direct = route == "direct"
+            key = f"{route}/{'dw' if dw else 'w'}{width}/{str(dt)[6:]}"
+            n = (refine_head.launches, conv_direct.launches,
+                 head_out_direct.launches, refine_head.routes[key])
+            got = refine_head(y, planes, params, dt,
+                              pack_head_weights(params, dt))
+            want = refine_head_reference(y, planes, params, dt)
+            assert (refine_head.launches, conv_direct.launches,
+                    head_out_direct.launches, refine_head.routes[key]) == (
+                (n[0], n[1] + 2 + dw, n[2] + 1, n[3] + 3 + dw) if direct
+                else (n[0] + 1, n[1], n[2], n[3] + 1))
+            err = float((got.float() - want.float()).abs().max())
+            # bf16: one ulp at the output's magnitude
+            mag = float(want.float().abs().max())
+            tol = 1e-4 if dt == torch.float32 else 2.0 ** (
+                np.floor(np.log2(mag)) - 7)
+            assert err <= tol, (width, dw, dt, err)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
