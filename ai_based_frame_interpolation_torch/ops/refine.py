@@ -9,8 +9,10 @@ Counterpart of the JAX package's ``ops/pallas/refine_fused.py``. With
 
 :func:`refine_head` launches ``csrc/refine_head.cu`` (bf16: dense heads
 of width up to 16 or 64, depthwise heads up to 64, zero-padded to the
-instance's width) or, in f32 and for wider bf16 heads, the direct convs of
-``ops/conv_direct.py`` (:func:`head_route`) for CUDA tensors, and runs
+instance's width), the tensor-core double conv of ``ops/dconv_fused.py``
+and the out conv (dense bf16 heads of width 65-256), or the direct convs
+of ``ops/conv_direct.py`` (f32, and the other bf16 heads)
+(:func:`head_route`) for CUDA tensors, and runs
 :func:`refine_head_reference` for CPU tensors. All take the JAX function's
 NHWC layout.
 """
@@ -26,6 +28,7 @@ import torch.nn.functional as F
 
 from . import _build
 from .conv_direct import conv_direct, head_out_direct, pack_conv
+from .dconv_fused import double_conv_fused, pack_dconv_weights
 
 
 def _conv(x, p, dtype, padding=0, groups=1):
@@ -65,14 +68,19 @@ def refine_head_reference(y_full: torch.Tensor, planes: Sequence[torch.Tensor],
 _MAX_PLANES = 4      # planes besides the prediction (flow: g0, g1, f1, f2)
 # the fused kernel's instances (csrc/refine_head.cu): route -> packed width
 _FUSED = {"w16": 16, "w64": 64, "dw64": 64}
+# the widest conv pair csrc/double_conv.cu runs for the option core (down2:
+# 128 -> 256 -> 256), the widest dense bf16 head the "dconv" route takes
+_DCONV_MAX = 256
 
 
 def head_route(width: int, compute_dtype, depthwise: bool) -> str:
     """Which kernel takes a head on the card: a fused bf16 instance, its
     width padded up with zeros at pack time (``"w16"`` for dense widths
-    1-16, ``"w64"`` for 17-64, ``"dw64"`` for depthwise widths 1-64), or
-    ``"direct"`` (``ops/conv_direct.py``: f32 at any width, bf16 above
-    64). Raises for another compute dtype."""
+    1-16, ``"w64"`` for 17-64, ``"dw64"`` for depthwise widths 1-64);
+    ``"dconv"`` for dense bf16 widths 65-256 (the tensor-core double conv
+    of ``ops/dconv_fused.py``, then the out conv); or ``"direct"``
+    (``ops/conv_direct.py``: f32 at any width, bf16 depthwise above 64 and
+    dense above 256). Raises for another compute dtype."""
     if width < 1:
         raise ValueError(f"refine_head: width {width}")
     if compute_dtype == torch.float32:
@@ -81,10 +89,29 @@ def head_route(width: int, compute_dtype, depthwise: bool) -> str:
         raise ValueError("the refine_head kernels compute in bf16 or f32; "
                          f"got compute_dtype={compute_dtype}")
     if width > 64:
-        return "direct"
+        return "dconv" if not depthwise and width <= _DCONV_MAX else "direct"
     if depthwise:
         return "dw64"
     return "w16" if width <= 16 else "w64"
+
+
+def _ceil8(n: int) -> int:
+    return (n + 7) // 8 * 8
+
+
+def dconv_pair(params: dict) -> tuple:
+    """The dense head's conv pair (w1, b1, w2, b2, OIHW) zero-padded to
+    what ``csrc/double_conv.cu`` takes: the input planes and the width up
+    to multiples of 8. A padded plane has zero weights, a padded channel
+    zero weights and bias, so it carries relu(0) = 0 and the padded pair
+    computes the narrow one."""
+    w1 = params["refine1"]["weight"]
+    width, nplanes = int(w1.shape[0]), int(w1.shape[1])
+    wd = _ceil8(width)
+    return (_pad_to(_pad_to(w1, wd, (0,)), _ceil8(nplanes), (1,)),
+            _pad_to(params["refine1"]["bias"], wd, (0,)),
+            _pad_to(params["refine2"]["weight"], wd, (0, 1)),
+            _pad_to(params["refine2"]["bias"], wd, (0,)))
 
 
 def _pad_to(t: torch.Tensor, n: int, dims) -> torch.Tensor:
@@ -109,28 +136,23 @@ def pack_head_weights(params: dict, compute_dtype=torch.bfloat16) -> dict:
     weights and bias, so it carries relu(0) = 0 and adds exact zeros, and
     the padded head computes the narrow one bit for bit.
 
-    Direct route: each conv as :func:`~.conv_direct.pack_conv` packs it
-    (w1, w2 or wdw and the 1x1 wpw, each with its bias), w3 and b3 as
-    above."""
+    Direct route: :func:`pack_direct_head`. ``"dconv"`` route: the conv
+    pair padded by :func:`dconv_pair` as
+    :func:`~.dconv_fused.pack_dconv_weights` packs it (w1, b1, w2, b2,
+    split), w3 with zero rows for the padded channels, b3."""
     w1 = params["refine1"]["weight"]
     width, nplanes = int(w1.shape[0]), int(w1.shape[1])
     c = int(params["refine_out"]["weight"].shape[0])
     depthwise = "refine2" not in params
     route = head_route(width, compute_dtype, depthwise)
+    if route == "direct":
+        return pack_direct_head(params, compute_dtype)
     w3 = params["refine_out"]["weight"].reshape(c, width).t() \
         .to(torch.float32)
     b3 = params["refine_out"]["bias"].to(torch.float32).contiguous()
-    if route == "direct":
-        packed = {}
-        for key, name, dw in (("1", "refine1", False), ("2", "refine2", False),
-                              ("dw", "refine2_dw", True),
-                              ("pw", "refine2_pw", False)):
-            if name in params:
-                p = pack_conv(params[name]["weight"], params[name]["bias"],
-                              compute_dtype, depthwise=dw)
-                packed["w" + key], packed["b" + key] = p["w"], p["b"]
-        packed["w3"], packed["b3"] = w3.contiguous(), b3
-        return packed
+    if route == "dconv":
+        return dict(pack_dconv_weights(*dconv_pair(params)),
+                    w3=_pad_to(w3, _ceil8(width), (0,)).contiguous(), b3=b3)
     wd = _FUSED[route]
     bf16 = torch.bfloat16
     packed = {
@@ -158,13 +180,33 @@ def pack_head_weights(params: dict, compute_dtype=torch.bfloat16) -> dict:
     return packed
 
 
+def pack_direct_head(params: dict, compute_dtype) -> dict:
+    """The direct route's weights (:func:`refine_head_direct`): each conv
+    as :func:`~.conv_direct.pack_conv` packs it (w1, w2 or wdw and the 1x1
+    wpw, each with its bias), w3 as (in, C) and b3 in f32."""
+    packed = {}
+    for key, name, dw in (("1", "refine1", False), ("2", "refine2", False),
+                          ("dw", "refine2_dw", True),
+                          ("pw", "refine2_pw", False)):
+        if name in params:
+            p = pack_conv(params[name]["weight"], params[name]["bias"],
+                          compute_dtype, depthwise=dw)
+            packed["w" + key], packed["b" + key] = p["w"], p["b"]
+    out = params["refine_out"]
+    c = int(out["weight"].shape[0])
+    packed["w3"] = out["weight"].reshape(c, -1).t().to(torch.float32) \
+        .contiguous()
+    packed["b3"] = out["bias"].to(torch.float32).contiguous()
+    return packed
+
+
 def refine_head_direct(y_full: torch.Tensor, planes: Sequence[torch.Tensor],
                        packed: dict, compute_dtype) -> torch.Tensor:
     """The head composed from the direct-conv kernels (the ``"direct"``
     route; their plain versions for CPU tensors): conv1, then conv2 or the
     depthwise 3x3 and the pointwise 1x1, each in ``compute_dtype`` with
     its output in device memory, then the f32 out conv and residual.
-    ``packed`` is :func:`pack_head_weights` in ``compute_dtype``."""
+    ``packed`` is :func:`pack_direct_head` in ``compute_dtype``."""
     cdt = compute_dtype
     pred = y_full.to(torch.float32).contiguous()
     z = torch.cat([pred.to(cdt)] + [p.to(cdt) for p in planes], -1)
@@ -175,6 +217,22 @@ def refine_head_direct(y_full: torch.Tensor, planes: Sequence[torch.Tensor],
         z = conv_direct(z, packed["wpw"], packed["bpw"])
     else:
         z = conv_direct(z, packed["w2"], packed["b2"])
+    return head_out_direct(z, packed["w3"], packed["b3"], pred)
+
+
+def refine_head_dconv(y_full: torch.Tensor, planes: Sequence[torch.Tensor],
+                      params: dict, packed: dict) -> torch.Tensor:
+    """A dense bf16 head as the double conv of ``z = concat(pred, *planes)``
+    (the ``"dconv"`` route: :func:`~.dconv_fused.double_conv_fused` on the
+    conv pair :func:`dconv_pair` pads, z zero-padded to its planes), then
+    the f32 out conv and residual; their plain versions for CPU tensors.
+    ``packed`` is :func:`pack_head_weights` of ``params`` in bf16."""
+    bf16 = torch.bfloat16
+    pair = dconv_pair(params)
+    pred = y_full.to(torch.float32).contiguous()
+    z = torch.cat([pred.to(bf16)] + [p.to(bf16) for p in planes], -1)
+    z = F.pad(z, (0, int(pair[0].shape[1]) - int(z.shape[-1])))
+    z = double_conv_fused(z, *pair, bf16, packed)
     return head_out_direct(z, packed["w3"], packed["b3"], pred)
 
 
@@ -222,8 +280,18 @@ def refine_head(y_full: torch.Tensor, planes: Sequence[torch.Tensor],
     if any(tuple(p.shape) != (b, h, w, c) or p.device != dev for p in planes):
         raise ValueError("refine_head: every plane must match y_full's "
                          "shape and device")
-    if any(t.device != dev for t in kw.values()):
+    if any(t.device != dev for t in kw.values()
+           if isinstance(t, torch.Tensor)):
         raise ValueError("refine_head: weights must be on y_full's device")
+    if route == "dconv":
+        if tuple(kw["w3"].shape) != (_ceil8(width), c):
+            raise ValueError(f"refine_head (dconv): w3 {tuple(kw['w3'].shape)}"
+                             f" is not pack_head_weights of a width-{width} "
+                             f"head with C={c} in {compute_dtype}")
+        # double_conv_fused checks the packed pair against the padded shapes
+        out = refine_head_dconv(y_full, planes, params, kw)
+        refine_head.routes[key] += 2            # the double conv; out
+        return out
     if route == "direct":
         if tuple(kw["w1"].shape) != (9, nplanes, width) or \
                 tuple(kw["w3"].shape) != (width, c) or \

@@ -17,12 +17,14 @@ Drives the port only (it imports nothing of JAX or of the JAX package):
    widths off the tile, a 7-row image, uneven channel counts and the
    align-corners composition; then every head route the port has besides
    those (bf16 heads at widths 8 and 32 padded to the fused instances,
-   depthwise heads at widths 16 and 32, a bf16 head at width 128 and f32
-   heads at widths 64 and 16, dense and depthwise, on the direct convs) and
-   the f32 double conv and up block (the direct convs) at the five levels'
-   b2 1080p shapes, two b8 ones and odd ones, f32 against a plain side run
-   with TF32 off; each check also reads the launches its wrapper counted
-   under the route it took;
+   depthwise heads at widths 16 and 32, dense bf16 heads at widths 128 and
+   256 on the tensor-core double conv and the out conv, a depthwise bf16
+   head at width 128 and f32 heads at widths 64 and 16, dense and
+   depthwise, on the direct convs) and the f32 double conv and up block
+   (the direct convs) at the five levels' b2 1080p shapes, two b8 ones and
+   odd ones, f32 against a plain side run with TF32 off, and the direct
+   conv alone in each of its modes at odd channel counts; each check also
+   reads the launches its wrapper counted under the route it took;
 3. drives the U-Net path once: the full-width production U-Net engine
    (s2d 4, base 64, depth 4, residual, refinement head 64, half-pixel
    decoder, random weights from a seed) on a batch of 8 gray 1080p frame
@@ -45,7 +47,8 @@ Drives the port only (it imports nothing of JAX or of the JAX package):
    arbitrary times and concurrent requests through the batcher;
 5. times the engines (U-Net on the default route, the option core and the
    depthwise head; flow) and each kernel and route with CUDA events (the
-   option core's levels with the time per weight chunk), the host PNG
+   option core's levels with the time per weight chunk; the f32 levels at
+   the f32 engine's b2 and at b8 for down1 and up3), the host PNG
    decode of a 1080p gray file per scanline filter, and the eval path's
    ``evaluate_model`` calls split into decode, engine and metric time,
    with the device's busy time in one profiled call;
@@ -208,9 +211,11 @@ def check_kernel(shape, width=64, nf32=0, depthwise=False) -> float:
 def check_head_route(shape, width, dtype=torch.bfloat16, depthwise=False,
                      nf32=0) -> float:
     """The head on the kernel ``head_route`` picks (a fused instance, the
-    width padded with zeros; or the direct convs) vs the plain head: bf16
-    within one ulp at the output's magnitude, f32 within F32_BOUND with
-    TF32 off on the plain side; the route's launches counted."""
+    width padded with zeros; the double conv and the out conv; or the
+    direct convs) vs the plain head: bf16 within one ulp at the output's
+    magnitude, f32 within F32_BOUND with TF32 off on the plain side; the
+    route's launches counted (the dconv route's double-conv launch also
+    under ``double_conv fused``)."""
     from ai_based_frame_interpolation_torch.ops.refine import (
         head_route, pack_head_weights, refine_head, refine_head_reference)
 
@@ -225,15 +230,19 @@ def check_head_route(shape, width, dtype=torch.bfloat16, depthwise=False,
     got = refine_head(y, planes, params, dtype, packed)
     torch.cuda.synchronize()
     n = {k: v - before[k] for k, v in counts().items()}
-    expect = dict(NO_LAUNCHES, refine_head=1) if route != "direct" else \
-        dict(NO_LAUNCHES, conv_direct=3 if depthwise else 2,
-             head_out_direct=1)
+    expect = dict(NO_LAUNCHES, **{
+        "direct": dict(conv_direct=3 if depthwise else 2, head_out_direct=1),
+        "dconv": dict(double_conv=1, head_out_direct=1)}.get(
+            route, dict(refine_head=1)))
     assert n == expect, f"head w{width} {dtype}: launches {n} != {expect}"
     key = (f"refine_head {route}/{'dw' if depthwise else 'w'}{width}/"
            f"{str(dtype)[6:]}")
     got_routes = {k: v - routes.get(k, 0) for k, v in route_counts().items()
                   if v != routes.get(k, 0)}
-    assert got_routes == {key: sum(n.values())}, \
+    want_routes = {key: sum(n.values())}
+    if route == "dconv":
+        want_routes["double_conv fused"] = 1
+    assert got_routes == want_routes, \
         f"head w{width} {dtype}: routes {got_routes}"
     with no_tf32():
         want = refine_head_reference(y, planes, params, dtype)
@@ -251,14 +260,18 @@ def check_head_route(shape, width, dtype=torch.bfloat16, depthwise=False,
 
 def check_head_routes(record) -> None:
     """Phase 2's part for the heads beside the production instances: the
-    padded bf16 widths, the depthwise head at 16 and 32, the wide bf16 head and
-    the f32 heads (the U-Net's 3 planes; the flow head's 5, 2 of them
-    f32 warped frames), at one 1088x1920 frame and off the tile."""
+    padded bf16 widths, the depthwise head at 16 and 32, the wide bf16
+    heads (dense 128 and 256 on the double conv, depthwise 128 on the
+    direct convs) and the f32 heads (the U-Net's 3 planes; the flow head's
+    5, 2 of them f32 warped frames), at one 1088x1920 frame and off the
+    tile."""
     errs = {}
     for width, dt, dw, nextra, nf32 in (
             (8, torch.bfloat16, False, 2, 0), (32, torch.bfloat16, False, 2, 0),
             (16, torch.bfloat16, True, 2, 0), (32, torch.bfloat16, True, 2, 0),
             (128, torch.bfloat16, False, 2, 0),
+            (256, torch.bfloat16, False, 2, 0),
+            (128, torch.bfloat16, True, 2, 0),
             (64, torch.float32, False, 2, 0), (64, torch.float32, True, 2, 0),
             (16, torch.float32, False, 4, 2)):
         for shape in ((1, 1088, 1920, 1, nextra), (2, 40, 72, 1, nextra)):
@@ -266,6 +279,57 @@ def check_head_routes(record) -> None:
                    f"{'x'.join(map(str, shape[:3]))}")
             errs[key] = check_head_route(shape, width, dt, dw, nf32)
     record["head_route_errs"] = errs
+
+
+def check_direct_modes(record) -> None:
+    """Phase 2's part for the direct conv's modes beyond the routes' own
+    shapes, each launch vs ``conv_direct_reference`` on the same inputs
+    (f32 within F32_BOUND, TF32 off on the plain side; bf16 within one ulp
+    at the output's magnitude), one launch counted each: the tiles for 16,
+    32 and 64 output channels, channel counts that are not multiples of 4
+    (the plain-load staging and stores), an up block whose skip and up
+    channels share a quad, depthwise over two channel blocks, and 1x1."""
+    from ai_based_frame_interpolation_torch.ops.conv_direct import (
+        conv_direct, conv_direct_reference, pack_conv)
+
+    gen = torch.Generator().manual_seed(13)
+
+    def rand(*shape):
+        return torch.rand(*shape, generator=gen) * 2 - 1
+
+    errs = {}
+    # (B, H, W, c0, c1, cout, ks, depthwise)
+    for b, h, w, c0, c1, cout, ks, dw in (
+            (2, 19, 37, 5, 0, 6, 3, False), (2, 19, 37, 24, 0, 20, 3, False),
+            (1, 33, 35, 24, 0, 72, 3, False), (2, 18, 34, 12, 6, 30, 3, False),
+            (2, 18, 34, 16, 16, 64, 3, False), (1, 21, 40, 72, 0, 72, 3, True),
+            (2, 19, 37, 20, 0, 20, 3, True), (2, 19, 37, 20, 0, 36, 1, False),
+            (1, 40, 72, 40, 0, 12, 1, False)):
+        cin = c0 + c1
+        wt = rand(cout, 1 if dw else cin, ks, ks) / (ks * (1 if dw else cin)) ** 0.5
+        x, low = rand(b, h, w, c0), (rand(b, h // 2, w // 2, c1) if c1 else None)
+        for dt in (torch.float32, torch.bfloat16):
+            p = pack_conv(wt, 0.1 * rand(cout), dt, depthwise=dw)
+            args = (x.to(dt).cuda(), p["w"].cuda(), p["b"].cuda(),
+                    None if low is None else low.to(dt).cuda())
+            kw = {"depthwise": True, "relu": False} if dw else {}
+            before = conv_direct.launches
+            got = conv_direct(*args, **kw)
+            torch.cuda.synchronize()
+            assert conv_direct.launches == before + 1
+            with no_tf32():
+                want = conv_direct_reference(*args, **kw)
+            err = float((got.float() - want.float()).abs().max())
+            tol = F32_BOUND if dt == torch.float32 else bf16_ulp(want)
+            key = (f"{'dw' if dw else f'{ks}x{ks}'}_{b}x{h}x{w}_{c0}+{c1}-"
+                   f"{cout}_{str(dt)[6:]}")
+            print(f"conv_direct {key}: max|kernel-plain|={err:.6g} (bound "
+                  f"{tol:.6g})", flush=True)
+            assert got.shape == want.shape and got.dtype == dt
+            assert bool(torch.isfinite(got.float()).all())
+            assert err <= tol, f"conv_direct {key} disagrees by {err}"
+            errs[key] = err
+    record["conv_direct_mode_errs"] = errs
 
 
 def sampler_inputs(b, h, w, c, max_flow, ts, dtype=torch.bfloat16, seed=0):
@@ -803,6 +867,7 @@ def check_kernels(record) -> None:
     check_ssim_kernels(record)
     check_core_kernels(record)
     check_head_routes(record)
+    check_direct_modes(record)
 
 
 def serve_requests(engine, seed) -> dict:
@@ -1478,12 +1543,15 @@ def time_dconv(smi, name, shape, dtype=torch.bfloat16) -> dict:
     return out
 
 
-def summed(parts) -> dict:
-    """Timings of the bf16 tensor-core calls one dispatch makes, added up;
-    bound by what bounds their sum."""
+def summed(parts, f32=False) -> dict:
+    """Timings of the calls one dispatch makes, added up (bf16 on the
+    tensor cores, or ``f32`` on the CUDA cores); bound by what bounds
+    their sum."""
     out = {k: sum(p[k] for p in parts) for k in
            ("ms", "plain_ms", "library_ms", "bound_ms", "flops", "bytes")}
-    out["bound_by"] = bound(out["flops"], out["bytes"], H100_BF16_FLOPS)[1]
+    flops = (0, out["flops"]) if f32 else (out["flops"], 0)
+    out["bound_by"] = bound(flops[0], out["bytes"], H100_BF16_FLOPS,
+                            flops[1])[1]
     return out
 
 
@@ -1558,6 +1626,16 @@ def main() -> int:
         [timings[f"dconv_{n}_b8"] for n in ("inc", "down1", "down2")])
     timings["up_double_conv_b8"] = summed(
         [timings[f"dconv_{n}_b8"] for n in ("up3", "up4")])
+    # f32 (the direct convs): the five levels at the f32 engine's b2 1080p,
+    # down1 and up3 also at b8
+    for name, shape in CORE_LEVELS.items():
+        timings[f"dconv_{name}_b2_f32"] = time_dconv(
+            smi, name, (2,) + shape[1:], torch.float32)
+    timings["double_conv_b2_f32"] = summed(
+        [timings[f"dconv_{n}_b2_f32"] for n in ("inc", "down1", "down2")],
+        f32=True)
+    timings["up_double_conv_b2_f32"] = summed(
+        [timings[f"dconv_{n}_b2_f32"] for n in ("up3", "up4")], f32=True)
     for name in ("down1", "up3"):
         timings[f"dconv_{name}_b8_f32"] = time_dconv(
             smi, name, CORE_LEVELS[name], torch.float32)
@@ -1565,7 +1643,9 @@ def main() -> int:
             ("refine_head_w32_padded", (32, 2, 0)),
             ("refine_head_w8_padded", (8, 2, 0)),
             ("refine_head_dw16_padded", (16, 2, 0, True)),
-            ("refine_head_direct_bf16_w128", (128, 2, 0)),
+            ("refine_head_dconv_bf16_w128", (128, 2, 0)),
+            ("refine_head_dconv_bf16_w256", (256, 2, 0)),
+            ("refine_head_direct_bf16_dw128", (128, 2, 0, True)),
             ("refine_head_direct_f32_w64", (64, 2, 0, False, torch.float32)),
             ("refine_head_direct_f32_dw64", (64, 2, 0, True, torch.float32)),
             ("refine_head_direct_f32_w16", (16, 4, 2, False, torch.float32))):
@@ -1638,11 +1718,21 @@ def main() -> int:
              "refine_fused.py:417", MAIN_ROUTES["refine_head dw64/dw16/bfloat16"],
              head_errs["dw16_bfloat16_1x1088x1920"],
              "refine_head_dw16_padded_1088x1920"),
-            ("refine_head_direct_bf16_w128", "conv_direct.cu",
+            ("refine_head_dconv_bf16_w128", "double_conv.cu",
              "refine_fused.py:417",
-             MAIN_ROUTES["refine_head direct/w128/bfloat16"],
+             MAIN_ROUTES["refine_head dconv/w128/bfloat16"],
              head_errs["w128_bfloat16_1x1088x1920"],
-             "refine_head_direct_bf16_w128_1088x1920"),
+             "refine_head_dconv_bf16_w128_1088x1920"),
+            ("refine_head_dconv_bf16_w256", "double_conv.cu",
+             "refine_fused.py:417",
+             MAIN_ROUTES["refine_head dconv/w256/bfloat16"],
+             head_errs["w256_bfloat16_1x1088x1920"],
+             "refine_head_dconv_bf16_w256_1088x1920"),
+            ("refine_head_direct_bf16_dw128", "conv_direct.cu",
+             "refine_fused.py:417",
+             MAIN_ROUTES["refine_head direct/dw128/bfloat16"],
+             head_errs["dw128_bfloat16_1x1088x1920"],
+             "refine_head_direct_bf16_dw128_1088x1920"),
             ("refine_head_direct_f32_w64", "conv_direct.cu",
              "refine_fused.py:417",
              MAIN_ROUTES["refine_head direct/w64/float32"],
@@ -1661,11 +1751,11 @@ def main() -> int:
             ("double_conv_direct_f32", "conv_direct.cu", "dconv_fused.py:164",
              MAIN_ROUTES["double_conv direct"],
              max(e for k, e in f32_errs.items() if "up" not in k),
-             "dconv_down1_b8_f32"),
+             "double_conv_b2_f32"),
             ("up_double_conv_direct_f32", "conv_direct.cu",
              "dconv_fused.py:411", MAIN_ROUTES["up_double_conv direct"],
              max(e for k, e in f32_errs.items() if "up" in k),
-             "dconv_up3_b8_f32")):
+             "up_double_conv_b2_f32")):
         t = timings[tm]
         kernels.append({"name": name, "route": "cuda", "source": src + cu,
                         "replaces": pallas + replaces, "launches": launches,

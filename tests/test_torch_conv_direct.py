@@ -219,9 +219,11 @@ def test_f32_engine_on_the_option_core_matches_jax():
 @pytest.mark.cuda
 def test_direct_convs_match_plain_on_the_card():
     """On the card (skips here): the direct kernel in f32 (dense, the up
-    block's first conv, depthwise, 1x1) within 1e-4 of its plain version
-    with TF32 off, in bf16 within one ulp at the output's magnitude; the
-    out kernel; launches counted."""
+    block's first conv, depthwise, 1x1; the tiles for 16, 32 and 64 output
+    channels, channel counts that are not multiples of 4, depthwise over
+    two channel blocks) within 1e-4 of its plain version with TF32 off, in
+    bf16 within one ulp at the output's magnitude; the out kernel;
+    launches counted."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card and nvcc")
     tf32 = (torch.backends.cudnn.allow_tf32,
@@ -234,11 +236,19 @@ def test_direct_convs_match_plain_on_the_card():
         low = torch.from_numpy(_x((2, 9, 18, 8), seed=19)).cuda()
         gen = np.random.default_rng(20)
         wdw = (gen.standard_normal((3, 3, 1, 24)) / 3.0).astype(np.float32)
+        x5 = torch.from_numpy(_x((2, 19, 37, 5), seed=27)).cuda()
+        x72 = torch.from_numpy(_x((1, 21, 40, 72), seed=28)).cuda()
+        wdw72 = (gen.standard_normal((3, 3, 1, 72)) / 3.0).astype(np.float32)
         cases = [(x, None, _hwio(24, 40, 20), {}),
                  (skip, low, _hwio(32, 16, 20), {}),
                  (x, None, (wdw, _hwio(24, 24, 20)[1]),
                   {"depthwise": True, "relu": False}),
-                 (x, None, _hwio(24, 40, 20, k=1), {})]
+                 (x, None, _hwio(24, 40, 20, k=1), {}),
+                 (x5, None, _hwio(5, 6, 29), {}),
+                 (x, None, _hwio(24, 20, 30), {}),
+                 (x72, None, (wdw72, _hwio(72, 72, 31)[1]),
+                  {"depthwise": True, "relu": False}),
+                 (x, None, _hwio(24, 36, 32, k=1), {})]
         for dt in (torch.float32, torch.bfloat16):
             for xi, lo, (w, b), kw in cases:
                 p = pack_conv(_oihw(w), torch.from_numpy(b), dt,

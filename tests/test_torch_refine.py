@@ -20,9 +20,11 @@ import pytest
 import torch
 
 from ai_based_frame_interpolation_torch.models.bridge import flax_to_state_dict
+from ai_based_frame_interpolation_torch.ops.dconv_fused import (
+    double_conv_fused)
 from ai_based_frame_interpolation_torch.ops.refine import (
-    head_route, pack_head_weights, refine_head, refine_head_direct,
-    refine_head_reference)
+    dconv_pair, head_route, pack_direct_head, pack_head_weights, refine_head,
+    refine_head_dconv, refine_head_direct, refine_head_reference)
 from ai_based_frame_interpolation_tpu.config import ModelConfig as JConfig
 from ai_based_frame_interpolation_tpu.models import build_model as j_build
 from ai_based_frame_interpolation_tpu.ops.pallas.refine_fused import (
@@ -358,15 +360,19 @@ def test_padded_packing_is_exact(width, depthwise, dtype):
 def test_head_route():
     """Each (width, compute dtype, depthwise) goes to its documented
     kernel: bf16 dense widths 1-16 to the w16 instance, 17-64 to w64,
-    depthwise 1-64 to the depthwise instance, wider bf16 heads and every
-    f32 head to the direct convs; another dtype raises."""
+    65-256 to the tensor-core double conv ("dconv"), depthwise 1-64 to the
+    depthwise instance, wider bf16 heads (depthwise above 64, dense above
+    256) and every f32 head to the direct convs; another dtype raises."""
     bf16, f32 = torch.bfloat16, torch.float32
     table = {(1, bf16, False): "w16", (4, bf16, False): "w16",
              (16, bf16, False): "w16", (17, bf16, False): "w64",
              (32, bf16, False): "w64", (64, bf16, False): "w64",
-             (128, bf16, False): "direct", (16, bf16, True): "dw64",
+             (65, bf16, False): "dconv", (128, bf16, False): "dconv",
+             (256, bf16, False): "dconv", (257, bf16, False): "direct",
+             (320, bf16, False): "direct", (16, bf16, True): "dw64",
              (64, bf16, True): "dw64", (96, bf16, True): "direct",
-             (16, f32, False): "direct", (64, f32, False): "direct",
+             (128, bf16, True): "direct", (16, f32, False): "direct",
+             (64, f32, False): "direct", (128, f32, False): "direct",
              (64, f32, True): "direct"}
     for (w, dt, dw), route in table.items():
         assert head_route(w, dt, dw) == route, (w, dt, dw)
@@ -380,14 +386,19 @@ def test_direct_head_composition_matches_plain(width, depthwise, dtype):
     """The direct route's composition (conv, conv or depthwise+pointwise,
     then the f32 out conv; here on the kernels' plain versions) against
     the plain head: f32 within 1e-5; bf16 within one bf16 ulp at |x| < 2
-    (the same rounding points, the residual summed in another order)."""
+    (the same rounding points, the residual summed in another order). The
+    dense bf16 case is what heads wider than 256 take, here at width 96
+    for size (``pack_direct_head``: ``head_route`` sends 96 to dconv)."""
     c, nextra = 1, 2
     nplanes = (1 + nextra) * c
     fp = _dw_head_params(nplanes, c, width) if depthwise else \
         _head_params(nplanes, c, width)
     params = _torch_params(fp)
     cdt = getattr(torch, dtype)
-    packed = pack_head_weights(params, cdt)
+    packed = pack_direct_head(params, cdt)
+    if head_route(width, cdt, depthwise) == "direct":
+        assert all(torch.equal(packed[k], v) for k, v in
+                   pack_head_weights(params, cdt).items())
     assert tuple(packed["w1"].shape) == (9, nplanes, width)
     y, planes = _inputs(1, 12, 20, c, nextra, seed=8)
     y, planes = torch.from_numpy(y), [torch.from_numpy(p) for p in planes]
@@ -399,12 +410,82 @@ def test_direct_head_composition_matches_plain(width, depthwise, dtype):
                                rtol=0, atol=atol)
 
 
+@pytest.mark.parametrize("width,nextra", [(72, 2), (72, 4), (100, 2),
+                                          (128, 2), (128, 4)])
+def test_dconv_head_packing_is_exact(width, nextra):
+    """A dense bf16 head of width 65-256 (the ``"dconv"`` route) is packed
+    as the double-conv kernel reads it: planes and width zero-padded to
+    multiples of 8 (``dconv_pair``; to 16 inside the chunk stream), w3
+    with zero rows. The head rebuilt from the chunk stream (read back as
+    the kernel locates each chunk) over the input with zero planes
+    appended, conv2 cut to the channels the kernel stores, equals the
+    unpadded head bit for bit with the sums in one fixed order; the
+    route's plain composition (``refine_head_dconv``) equals the plain
+    head bit for bit."""
+    from test_torch_dconv import _unchunk
+
+    c, bf16 = 1, torch.bfloat16
+    nplanes = (1 + nextra) * c
+    params = {n: {k: v.bfloat16().float() for k, v in p.items()}
+              for n, p in _torch_params(_head_params(nplanes, c, width))
+              .items()}
+    packed = pack_head_weights(params)
+    wd = (width + 7) // 8 * 8
+    kin, midp = (nplanes + 15) // 16 * 16, (wd + 15) // 16 * 16
+    assert [tuple(t.shape) for t in dconv_pair(params)] == [
+        (wd, (nplanes + 7) // 8 * 8, 3, 3), (wd,), (wd, wd, 3, 3), (wd,)]
+    assert tuple(packed["w3"].shape) == (wd, c)
+    assert not packed["w3"][width:].any()
+
+    def oihw(flat, n, k):          # the chunk stream as [n][k][3][3]
+        return _unchunk(flat.float(), n, k).reshape(3, 3, n, k) \
+            .permute(2, 3, 0, 1)
+
+    padded = {"refine1": {"weight": oihw(packed["w1"], midp, kin),
+                          "bias": packed["b1"].float()},
+              "refine2": {"weight": oihw(packed["w2"], midp, midp)[:wd],
+                          "bias": packed["b2"].float()[:wd]},
+              "refine_out": {"weight": packed["w3"].t().reshape(c, wd, 1, 1),
+                             "bias": packed["b3"]}}
+    y, planes = _inputs(1, 12, 20, c, nextra, seed=11)
+    y, planes = torch.from_numpy(y), [torch.from_numpy(p) for p in planes]
+    zeros = torch.zeros(*y.shape[:3], kin - nplanes)
+    assert torch.equal(_ordered_head(y, planes + [zeros], padded, bf16),
+                       _ordered_head(y, planes, params, bf16))
+    assert torch.equal(refine_head_dconv(y, planes, params, packed),
+                       refine_head_reference(y, planes, params, bf16))
+
+
+def test_cpu_wrapper_runs_the_dconv_head_without_launching():
+    """A bf16 head of width 128 (the ``"dconv"`` route on the card) on CPU
+    tensors runs the plain head: no launch of refine_head, double_conv_fused
+    or head_out_direct, and no route counted."""
+    from ai_based_frame_interpolation_torch.ops.conv_direct import (
+        head_out_direct)
+
+    params = _torch_params(_head_params(3, 1, width=128))
+    y, planes = _inputs(1, 16, 16, 1, 2)
+
+    def counters():
+        return (refine_head.launches, dict(refine_head.routes),
+                double_conv_fused.launches, dict(double_conv_fused.routes),
+                head_out_direct.launches)
+
+    before = counters()
+    args = (torch.from_numpy(y), [torch.from_numpy(p) for p in planes],
+            params, torch.bfloat16)
+    assert torch.equal(refine_head(*args, packed=pack_head_weights(params)),
+                       refine_head_reference(*args))
+    assert counters() == before
+
+
 @pytest.mark.cuda
 def test_every_head_route_matches_plain_on_the_card():
     """On the card (skips here): padded heads (w8, w32, depthwise w16) on
-    the fused instances, the bf16 w128 head and the f32 heads on the
-    direct convs, each within one bf16 ulp at the output's magnitude (f32:
-    1e-4, TF32 off) of the plain head, with its launches counted."""
+    the fused instances, the bf16 w128 and w256 heads on the double conv
+    ("dconv"), the bf16 depthwise w128 head and the f32 heads on the direct
+    convs, each within one bf16 ulp at the output's magnitude (f32: 1e-4,
+    TF32 off) of the plain head, with its launches counted."""
     from ai_based_frame_interpolation_torch.ops.conv_direct import (
         conv_direct, head_out_direct)
 
@@ -422,6 +503,8 @@ def test_every_head_route_matches_plain_on_the_card():
                               (32, False, torch.bfloat16),
                               (16, True, torch.bfloat16),
                               (128, False, torch.bfloat16),
+                              (256, False, torch.bfloat16),
+                              (128, True, torch.bfloat16),
                               (64, False, torch.float32),
                               (64, True, torch.float32)):
             fp = _dw_head_params(nplanes, c, width) if dw else \
@@ -429,17 +512,20 @@ def test_every_head_route_matches_plain_on_the_card():
             params = {n: {k: v.cuda() for k, v in p.items()}
                       for n, p in _torch_params(fp).items()}
             route = head_route(width, dt, dw)
-            direct = route == "direct"
             key = f"{route}/{'dw' if dw else 'w'}{width}/{str(dt)[6:]}"
-            n = (refine_head.launches, conv_direct.launches,
-                 head_out_direct.launches, refine_head.routes[key])
+
+            def counts():
+                return (refine_head.launches, double_conv_fused.launches,
+                        conv_direct.launches, head_out_direct.launches,
+                        refine_head.routes[key])
+
+            n = counts()
             got = refine_head(y, planes, params, dt,
                               pack_head_weights(params, dt))
             want = refine_head_reference(y, planes, params, dt)
-            assert (refine_head.launches, conv_direct.launches,
-                    head_out_direct.launches, refine_head.routes[key]) == (
-                (n[0], n[1] + 2 + dw, n[2] + 1, n[3] + 3 + dw) if direct
-                else (n[0] + 1, n[1], n[2], n[3] + 1))
+            step = {"direct": (0, 0, 2 + dw, 1, 3 + dw),
+                    "dconv": (0, 1, 0, 1, 2)}.get(route, (1, 0, 0, 0, 1))
+            assert counts() == tuple(a + d for a, d in zip(n, step)), route
             err = float((got.float() - want.float()).abs().max())
             # bf16: one ulp at the output's magnitude
             mag = float(want.float().abs().max())
