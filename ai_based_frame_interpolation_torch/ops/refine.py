@@ -247,6 +247,27 @@ def _lib():
     return fn
 
 
+def fused_variant(route: str, nplanes: int, c: int, f32_planes: int = 0
+                  ) -> dict:
+    """What ``csrc/refine_head.cu`` launches on the current CUDA device for
+    a fused route (``"w16"``, ``"w64"`` or ``"dw64"``) with ``nplanes``
+    planes of ``c`` channels, ``f32_planes`` the bit mask of the f32
+    planes after the prediction: ``groups``, the tiles in flight per block
+    (two, or one where two do not fit in shared memory), ``smem``, its
+    bytes per block, and ``blocks_per_sm``. Needs the card; launches
+    nothing."""
+    fn = _build.load("refine_head").refine_head_variant
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 3)()
+    err = fn(nplanes, c, f32_planes, _FUSED[route], route == "dw64",
+             ctypes.addressof(out))
+    if err:
+        raise RuntimeError(f"refine_head_variant: CUDA error {err}")
+    return {"groups": out[0], "smem": out[1], "blocks_per_sm": out[2]}
+
+
 def refine_head(y_full: torch.Tensor, planes: Sequence[torch.Tensor],
                 params: dict, compute_dtype=torch.bfloat16,
                 packed: Optional[dict] = None) -> torch.Tensor:

@@ -10,7 +10,13 @@ Drives the port only (it imports nothing of JAX or of the JAX package):
 2. holds each kernel against its plain PyTorch version on the card, at the
    main paths' shapes and a few more: the refinement head at width 64 (the
    U-Net head) and 16 (the flow head, 5 or 15 planes), the depthwise head
-   (1088x1920 gray, small RGB), the flow sampler, the SSIM kernel (the eval
+   (1088x1920 gray, small RGB), each instance also where its tile loop can
+   break (tiles on a batch boundary, widths that are not a multiple of 8
+   in gray and RGB, an image smaller than a tile, planes at a data pointer
+   that is not 16-byte aligned; the flow head with 15 planes at 2x37x53;
+   the U-Net head with 15 planes, which takes one group of warps), with
+   the variant each launch took (groups, shared memory, blocks per SM),
+   the flow sampler, the SSIM kernel (the eval
    path's 8x256x256 and 8x1080x1920, 4K, RGB, 7x7, f32 inputs, identical
    images, two runs bit for bit), and the option core's double conv (inc,
    down1, down2 at b8 1080p) and up block (up3, up4), with heights and
@@ -176,19 +182,39 @@ def head_inputs(b, h, w, c, nextra, width=64, seed=0, nf32=0,
     return y, planes, params
 
 
-def check_kernel(shape, width=64, nf32=0, depthwise=False) -> float:
+def offset_view(t: torch.Tensor, k: int) -> torch.Tensor:
+    """t's values as a contiguous view k elements into a larger buffer (a
+    frame sliced from a stack): its data pointer is not 16-byte aligned
+    for k = 1."""
+    buf = torch.empty(t.numel() + k, dtype=t.dtype, device=t.device)
+    view = buf[k:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def check_kernel(shape, width=64, nf32=0, depthwise=False,
+                 offset=0) -> float:
     """The refine_head kernel vs its plain version on the card: within
     FLOAT_BOUND (both round each conv to bf16 around its bias; f32 sums in
     another order can flip a value on a rounding boundary by one ulp, which
-    the next conv carries) and within 1 uint8 LSB after denormalize."""
+    the next conv carries) and within 1 uint8 LSB after denormalize. With
+    ``offset``, the prediction and every plane are views that many
+    elements into larger buffers. Prints the variant the kernel took."""
     from ai_based_frame_interpolation_torch.ops.image import (
         denormalize_to_uint8)
     from ai_based_frame_interpolation_torch.ops.refine import (
-        refine_head, refine_head_reference)
+        fused_variant, head_route, refine_head, refine_head_reference)
 
     b, h, w, c, nextra = shape
     y, planes, params = head_inputs(b, h, w, c, nextra, width, nf32=nf32,
                                     depthwise=depthwise)
+    if offset:
+        y = offset_view(y, offset)
+        planes = [offset_view(p, offset) for p in planes]
+        assert all(t.data_ptr() % 16 for t in [y] + planes)
+    nplanes = (1 + nextra) * c
+    variant = fused_variant(head_route(width, torch.bfloat16, depthwise),
+                            nplanes, c, (1 << nf32) - 1)
     before = refine_head.launches
     got = refine_head(y, planes, params)
     torch.cuda.synchronize()
@@ -198,9 +224,12 @@ def check_kernel(shape, width=64, nf32=0, depthwise=False) -> float:
     du = (denormalize_to_uint8(got).int() - denormalize_to_uint8(want).int()).abs()
     print(f"refine_head{' depthwise' if depthwise else ''} w{width} B={b} "
           f"{h}x{w} C={c} planes="
-          f"{(1 + nextra) * c} ({nf32 * c} f32): "
+          f"{nplanes} ({nf32 * c} f32)"
+          f"{f' at element offset {offset}' if offset else ''}: "
           f"max|kernel-plain|={err:.6g} uint8 differing={float((du > 0).float().mean()):.6g}"
-          f" max uint8 diff={int(du.max())}", flush=True)
+          f" max uint8 diff={int(du.max())}; variant {variant['groups']} "
+          f"group(s), {variant['smem']} B shared, "
+          f"{variant['blocks_per_sm']} block(s)/SM", flush=True)
     assert got.shape == want.shape and got.dtype == torch.bfloat16
     assert bool(torch.isfinite(got.float()).all())
     assert err <= FLOAT_BOUND, f"kernel disagrees by {err}"
@@ -830,15 +859,30 @@ def build(record) -> None:
                 print(f"  {name}: {line.strip()}", flush=True)
 
 
-def check_kernels(record) -> None:
-    """Each kernel against its plain version on the card."""
+# (B, H, W, C, element offset) where the head's tile loop can break: tiles
+# on a batch boundary (B=3: the rows above image b are zeros, not image
+# b-1's), widths not a multiple of 8 (rows off 16-byte alignment, gray and
+# RGB), an image smaller than a tile (fewer tiles than a block's groups),
+# and planes at a data pointer that is not 16-byte aligned
+EDGE_SHAPES = [(3, 40, 72, 1, 0), (2, 37, 53, 1, 0), (1, 21, 45, 3, 0),
+               (1, 7, 9, 1, 0), (2, 40, 72, 1, 1), (1, 21, 45, 3, 1)]
+
+
+def check_heads(record) -> None:
+    """The fused head's three instances against the plain head."""
     # w64: the U-Net path's shapes (8x1088x1920; the batcher's 4x256x256),
     # one 1080p frame, widths 128/256, heights that are not a multiple of
-    # 16, RGB (9 planes) and 5 planes
+    # 16, RGB (9 planes) and 5 planes; every instance also at EDGE_SHAPES
     shapes = [(8, 1088, 1920, 1, 2), (4, 256, 256, 1, 2), (1, 1088, 1920, 1, 2),
               (2, 72, 128, 1, 2), (2, 40, 256, 1, 2), (1, 40, 72, 3, 2),
               (2, 56, 96, 1, 4)]
-    record["refine_head_w64_max_abs_err"] = max(check_kernel(s) for s in shapes)
+    errs = [check_kernel(s) for s in shapes]
+    errs += [check_kernel((b, h, w, c, 2), offset=off)
+             for b, h, w, c, off in EDGE_SHAPES]
+    # RGB, 4 frames besides the prediction, 2 of them f32 (15 planes): two
+    # groups do not fit, one does
+    errs.append(check_kernel((1, 40, 72, 3, 4), nf32=2))
+    record["refine_head_w64_max_abs_err"] = max(errs)
     # w16: the flow path's 5 planes with f32 g0/g1 (8x1088x1920, the
     # batcher's 256x256), small widths, heights 40 and 50, RGB (15 planes),
     # and all-bf16 planes
@@ -846,13 +890,22 @@ def check_kernels(record) -> None:
               (2, 40, 256, 1, 4), (1, 40, 72, 3, 4), (2, 50, 96, 1, 4)]
     errs = [check_kernel(s, width=16, nf32=2) for s in shapes]
     errs.append(check_kernel((2, 56, 96, 1, 4), width=16))
+    errs += [check_kernel((b, h, w, c, 4), width=16, nf32=2, offset=off)
+             for b, h, w, c, off in EDGE_SHAPES + [(2, 37, 53, 3, 0)]]
     record["refine_head_w16_max_abs_err"] = max(errs)
     # the depthwise head: the U-Net path's 8x1088x1920 and one frame, off
     # the tile (40x72), RGB (9 planes)
     shapes = [(8, 1088, 1920, 1, 2), (1, 1088, 1920, 1, 2), (2, 40, 72, 1, 2),
               (1, 40, 72, 3, 2)]
-    record["refine_head_dw_max_abs_err"] = max(
-        check_kernel(s, depthwise=True) for s in shapes)
+    errs = [check_kernel(s, depthwise=True) for s in shapes]
+    errs += [check_kernel((b, h, w, c, 2), depthwise=True, offset=off)
+             for b, h, w, c, off in EDGE_SHAPES]
+    record["refine_head_dw_max_abs_err"] = max(errs)
+
+
+def check_kernels(record) -> None:
+    """Each kernel against its plain version on the card."""
+    check_heads(record)
     # the sampler: the flow path's 8x1088x1920 at mf16 with a time per
     # item, a 1080p frame at mf32, odd sizes, RGB, f32 frames, and frames
     # narrower than 2*max_flow + 2

@@ -357,6 +357,104 @@ def test_padded_packing_is_exact(width, depthwise, dtype):
                                    atol=1e-6)
 
 
+def _fused_conv1(z, w1, b1):
+    """conv1 of the fused kernel (``csrc/refine_head.cu``) emulated tile by
+    tile with its operand indexing: the 20x20 pixel-major bf16 halo with
+    the planes zero-padded to P (a multiple of 4), the per-block quad
+    offset table, the conv1 weights reordered into the m16n8k16 column
+    order (lane t's quad: columns 2t, 2t+1, 2t+8, 2t+9), pad quads zero.
+    Each window row's products are summed in one fixed order (K index,
+    i.e. tap then plane, one f32 multiply-add after another). z: [B,H,W,n]
+    float (bf16 values); w1: the packed [WD, 9n]; b1: [WD]. Returns the
+    bf16 z1 of every tile window, [tiles, 324, WD], zero outside the
+    image, and each window pixel's image coordinates."""
+    b, h, w, n = z.shape
+    wd = w1.shape[0]
+    p = (n + 3) // 4 * 4
+    kp = (9 * p + 15) // 16 * 16
+    nq = 9 * p // 4
+    qoff = []                             # the kernel's qoff table
+    for q in range(kp // 4):
+        tap = 4 * q // p
+        qoff.append(((tap // 3) * 20 + tap % 3) * p + 4 * q - tap * p
+                    if q < nq else -1)
+    w1s = torch.zeros(wd, kp)             # the kernel's w1s, MMA column order
+    kk_of = []                            # K index of each MMA column
+    for c in range(kp):
+        cc = c % 16
+        kk = c - cc + 4 * ((cc % 8) // 2) + 2 * (cc // 8) + cc % 2
+        kk_of.append(kk)
+        tap, pl = divmod(kk, p)
+        if tap < 9 and pl < n:
+            w1s[:, c] = w1[:, tap * n + pl]
+    # the halo element each MMA column of each window row reads (-1: zero)
+    m = torch.arange(324)
+    hb = ((m // 18) * 20 + m % 18) * p
+    cols = []
+    for c in range(kp):
+        ks, cc = divmod(c, 16)
+        q = ks * 4 + (cc % 8) // 2
+        cols.append(hb + qoff[q] + 2 * (cc // 8) + cc % 2 if qoff[q] >= 0
+                    else torch.full((324,), -1))
+    idx = torch.stack(cols, 1)            # [324, kp]
+    order = sorted(range(kp), key=lambda c: kk_of[c])
+    zp = torch.nn.functional.pad(z, (0, p - n, 2, 2, 2, 2))   # zero halo
+    bf16 = torch.bfloat16
+    out, coords = [], []
+    for bi in range(b):
+        for y0 in range(0, h, 16):
+            for x0 in range(0, w, 16):
+                halo = torch.zeros(20, 20, p)
+                win = zp[bi, y0:y0 + 20, x0:x0 + 20]
+                halo[:win.shape[0], :win.shape[1]] = win
+                flat = torch.cat([halo.reshape(-1), torch.zeros(1)])
+                a = flat[idx]             # idx -1 reads the appended zero
+                acc = torch.zeros(324, wd)
+                for c in order:
+                    acc = acc + a[:, c:c + 1] * w1s[:, c]
+                z1 = torch.relu(acc.to(bf16) + b1.to(bf16))
+                gy = y0 - 1 + m // 18
+                gx = x0 - 1 + m % 18
+                inside = (gy >= 0) & (gy < h) & (gx >= 0) & (gx < w)
+                out.append(torch.where(inside[:, None], z1,
+                                       torch.zeros((), dtype=bf16)))
+                coords.append((bi, gy, gx, inside))
+    return torch.stack(out), coords
+
+
+@pytest.mark.parametrize("b,h,w,c,nextra", [
+    (2, 19, 21, 1, 2), (1, 13, 17, 3, 2), (2, 19, 21, 1, 4),
+    (1, 13, 17, 3, 4)])
+def test_fused_conv1_operands_are_exact(b, h, w, c, nextra):
+    """The fused kernel's conv1 operand indexing (halo layout, zero pads,
+    the K order of its conv1 weights in shared memory, read from the packed
+    w1) is conv1: emulated on odd-sized gray and RGB inputs with 3, 5, 9
+    and 15 planes, every tile window equals the plain conv1 (SAME padding,
+    zero outside the image) bit for bit with fixed-order sums."""
+    nplanes = (1 + nextra) * c
+    width = 64 if nextra == 2 else 16
+    params = {k: {n: v.bfloat16().float() for n, v in q.items()}
+              for k, q in _torch_params(_head_params(nplanes, c, width,
+                                                     seed=3)).items()}
+    kw = {k: v.float() for k, v in pack_head_weights(params).items()}
+    y, planes = _inputs(b, h, w, c, nextra, seed=4)
+    z = torch.cat([torch.from_numpy(t) for t in [y] + planes], -1) \
+        .bfloat16().float()
+    got, coords = _fused_conv1(z, kw["w1"], kw["b1"])
+    w1 = params["refine1"]["weight"]          # plain: tap, then plane
+    zp = torch.nn.functional.pad(z, (0, 0, 1, 1, 1, 1))
+    acc = torch.zeros(b, h, w, width)
+    for dy in range(3):
+        for dx in range(3):
+            for i in range(nplanes):
+                acc = acc + zp[:, dy:dy + h, dx:dx + w, i:i + 1] \
+                    * w1[:, i, dy, dx]
+    want = torch.relu(acc.bfloat16() + params["refine1"]["bias"].bfloat16())
+    for t, (bi, gy, gx, inside) in enumerate(coords):
+        assert not got[t][~inside].float().any()
+        assert torch.equal(got[t][inside], want[bi, gy[inside], gx[inside]])
+
+
 def test_head_route():
     """Each (width, compute dtype, depthwise) goes to its documented
     kernel: bf16 dense widths 1-16 to the w16 instance, 17-64 to w64,
