@@ -10,18 +10,64 @@ plain version, and a failed build or launch raises. For CPU tensors all
 three compute the plain :func:`ops.ssim.ssim_eval`.
 
 ``ssim_eval_fused.launches`` counts the kernel's launches, one per call
-(each call runs the tile kernel and the per-image mean kernel of the same
-source).
+(each call runs the band kernel and the per-image mean kernel of the same
+source). :func:`band_geometry` mirrors how the kernel cuts an image plane
+into strips of columns and bands of rows, one warp each, and
+:func:`partials_per_plane` how many partials it sums per plane: one per
+strip and two output rows, whatever the bands.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 
 import torch
 
 from . import _build
 from .ssim import ssim_eval
+
+
+# csrc/ssim_eval.cu's decomposition: a one-warp block per (image plane,
+# strip, band); a lane takes LANE_COLS consecutive output columns; one
+# partial per strip and GROUP output rows; bands of a multiple of GROUP
+# rows, MIN_BAND or more, as many as give about BLOCKS_PER_SM blocks an SM
+WIN = 7
+LANES = 32
+LANE_COLS = {torch.uint8: 8, torch.float32: 2}
+GROUP = 2
+MIN_BAND = 2
+BLOCKS_PER_SM = 16
+
+
+def strip_cols(dtype) -> int:
+    """Output columns a strip (one warp) takes for uint8 or f32 inputs."""
+    return LANES * LANE_COLS[dtype]
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def band_geometry(b: int, c: int, h: int, w: int, dtype, sms: int) -> tuple:
+    """(strips, bands, band rows) of the kernel's grid for [b,h,w,c]
+    images on a card of ``sms`` SMs: ``b * c * strips * bands`` blocks.
+    The bands schedule the work; the partials do not depend on them."""
+    valid_h, valid_w = h - WIN + 1, w - WIN + 1
+    strips = _cdiv(valid_w, strip_cols(dtype))
+    bands = max(1, min(_cdiv(sms * BLOCKS_PER_SM, b * c * strips), valid_h))
+    band_h = max(MIN_BAND, _cdiv(_cdiv(valid_h, bands), GROUP) * GROUP)
+    return strips, _cdiv(valid_h, band_h), band_h
+
+
+def partials_per_plane(h: int, w: int) -> int:
+    """The kernel's ``ssim_eval_tiles``: one partial per strip and GROUP
+    output rows of an image plane, at the narrower f32 strips; 0 below
+    the window."""
+    if h < WIN or w < WIN:
+        return 0
+    return (_cdiv(w - WIN + 1, strip_cols(torch.float32))
+            * _cdiv(h - WIN + 1, GROUP))
 
 
 def _lib():
@@ -55,10 +101,12 @@ def _launch(img1: torch.Tensor, img2: torch.Tensor,
     dev = img1.device
     lib = _lib()
     tiles = lib.ssim_eval_tiles(h, w)
-    partials = torch.empty((b, c * tiles), dtype=torch.float32, device=dev)
-    out = torch.empty((b,), dtype=torch.float32, device=dev)
+    # the [B] result and the [B, C * tiles] partials: one allocation
+    buf = torch.empty(b + b * c * tiles, dtype=torch.float32, device=dev)
+    out, partials = buf[:b], buf[b:]
     strides = (ctypes.c_longlong * 4)(*img1.stride())
-    with torch.cuda.device(dev):
+    here = dev.index is None or dev.index == torch.cuda.current_device()
+    with contextlib.nullcontext() if here else torch.cuda.device(dev):
         err = lib.ssim_eval(img1.data_ptr(), img2.data_ptr(), strides,
                             int(img1.dtype == torch.float32),
                             partials.data_ptr(), out.data_ptr(), b, h, w, c,

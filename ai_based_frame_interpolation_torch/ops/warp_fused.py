@@ -12,10 +12,16 @@ Counterpart of the JAX package's ``ops/pallas/warp_fused.py``. For frames
 runs :func:`sample_fused_reference` for CPU tensors. Both take the JAX
 function's NHWC layout and return f32 ``(out, g0, g1)``; the kernel takes
 its inputs at any strides, so views of NCHW tensors go in without a copy.
+
+The kernel has two paths: a tiled one for gray frames whose inputs all
+have a column stride of 1 (the flow model's layout), and a general one
+for everything else; :func:`kernel_path` asks the kernel which a call
+takes.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 
 import torch
@@ -60,7 +66,25 @@ def _lib():
                        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 +
                        [ctypes.c_void_p])
         fn.restype = ctypes.c_int
+        lib.sample_fused_path.argtypes = [ctypes.POINTER(ctypes.c_longlong)] + [
+            ctypes.c_int] * 3
+        lib.sample_fused_path.restype = ctypes.c_int
     return fn
+
+
+def _strides(f1, f2, flow, mask):
+    return (ctypes.c_longlong * 15)(*f1.stride(), *f2.stride(),
+                                    *flow.stride(), *mask.stride()[:3])
+
+
+def kernel_path(f1, f2, flow, mask) -> str:
+    """The path the kernel takes for these :func:`sample_fused` arguments,
+    ``"tiled"`` or ``"general"``, as the built kernel decides it."""
+    _lib()
+    b, h, w, c = f1.shape
+    tiled = _build.load("sample_fused").sample_fused_path(
+        _strides(f1, f2, flow, mask), h, w, c)
+    return "tiled" if tiled else "general"
 
 
 def sample_fused(f1: torch.Tensor, f2: torch.Tensor, flow: torch.Tensor,
@@ -81,9 +105,10 @@ def sample_fused(f1: torch.Tensor, f2: torch.Tensor, flow: torch.Tensor,
         raise ValueError(f"sample_fused: unsupported device {f1.device}")
     b, h, w, c = f1.shape
     dev = f1.device
-    if c not in (1, 3) or h < 2 or w < 2:
+    if c not in (1, 3) or not (2 <= h <= 2 ** 22 and 2 <= w <= 2 ** 22):
         raise ValueError(f"sample_fused kernel: frames {tuple(f1.shape)} "
-                         "are not supported (C in {1, 3}, H and W >= 2)")
+                         "are not supported (C in {1, 3}, H and W in "
+                         "[2, 2^22])")
     if f1.dtype not in (torch.bfloat16, torch.float32) or f2.dtype != f1.dtype:
         raise ValueError("sample_fused kernel: f1 and f2 must both be bf16 "
                          f"or both f32, got {f1.dtype} and {f2.dtype}")
@@ -96,12 +121,17 @@ def sample_fused(f1: torch.Tensor, f2: torch.Tensor, flow: torch.Tensor,
         if name != "f2" and x.dtype != torch.float32:
             raise ValueError(f"sample_fused: {name} must be f32, got {x.dtype}")
     t = t.contiguous()
-    strides = (ctypes.c_longlong * 15)(*f1.stride(), *f2.stride(),
-                                       *flow.stride(), *mask.stride()[:3])
-    out, g0, g1 = (torch.empty((b, h, w, c), dtype=torch.float32, device=dev)
-                   for _ in range(3))
+    strides = _strides(f1, f2, flow, mask)
+    # out, g0 and g1: one allocation, three contiguous [B,H,W,C] views, each
+    # at a 16-byte aligned offset (the kernel's 16-byte stores)
+    n = b * h * w * c
+    part = (n + 3) // 4 * 4
+    buf = torch.empty(3 * part, dtype=torch.float32, device=dev)
+    out, g0, g1 = (buf[k * part:k * part + n].view(b, h, w, c)
+                   for k in range(3))
     fn = _lib()
-    with torch.cuda.device(dev):
+    here = dev.index is None or dev.index == torch.cuda.current_device()
+    with contextlib.nullcontext() if here else torch.cuda.device(dev):
         err = fn(f1.data_ptr(), f2.data_ptr(), flow.data_ptr(),
                  mask.data_ptr(), t.data_ptr(), strides, out.data_ptr(),
                  g0.data_ptr(), g1.data_ptr(), b, h, w, c, int(max_flow),

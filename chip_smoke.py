@@ -16,9 +16,13 @@ Drives the port only (it imports nothing of JAX or of the JAX package):
    that is not 16-byte aligned; the flow head with 15 planes at 2x37x53;
    the U-Net head with 15 planes, which takes one group of warps), with
    the variant each launch took (groups, shared memory, blocks per SM),
-   the flow sampler, the SSIM kernel (the eval
+   the flow sampler (the flow path's shapes and the edges of its tiles:
+   images off the tile and smaller than the flow's reach, saturated
+   flows, unaligned pointers, both layouts, RGB and f32, each bit for bit
+   with the path it took), the SSIM kernel (the eval
    path's 8x256x256 and 8x1080x1920, 4K, RGB, 7x7, f32 inputs, identical
-   images, two runs bit for bit), and the option core's double conv (inc,
+   images, its strip and band edges, two runs bit for bit), and the
+   option core's double conv (inc,
    down1, down2 at b8 1080p) and up block (up3, up4), with heights and
    widths off the tile, a 7-row image, uneven channel counts and the
    align-corners composition; then every head route the port has besides
@@ -53,6 +57,8 @@ Drives the port only (it imports nothing of JAX or of the JAX package):
    arbitrary times and concurrent requests through the batcher;
 5. times the engines (U-Net on the default route, the option core and the
    depthwise head; flow) and each kernel and route with CUDA events (the
+   sampler at b1 and b8 and the SSIM kernel also by their own device
+   time, torch.profiler; the
    option core's levels with the time per weight chunk; the f32 levels at
    the f32 engine's b2 and at b8 for down1 and up3), the host PNG
    decode of a 1080p gray file per scanline filter, and the eval path's
@@ -84,6 +90,7 @@ import collections
 import contextlib
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -361,41 +368,102 @@ def check_direct_modes(record) -> None:
     record["conv_direct_mode_errs"] = errs
 
 
-def sampler_inputs(b, h, w, c, max_flow, ts, dtype=torch.bfloat16, seed=0):
+def sampler_inputs(b, h, w, c, max_flow, ts, dtype=torch.bfloat16, seed=0,
+                   layout="engine", offset=0, saturate=False):
     """Random sampler inputs on the card: frames in ``dtype``, flows out to
-    1.5x the bound (so the clamp acts), the flow as the NHWC view of an
-    NCHW field (the engine's layout), per-item times ``ts``."""
+    1.5x the bound (so the clamp acts; ``saturate``: every flow 4x the
+    bound, in a random direction per pixel and axis), per-item times
+    ``ts``. ``layout="engine"``: frames, flow and mask as the NHWC views of
+    NCHW tensors the flow model passes; ``"nhwc"``: all contiguous NHWC.
+    ``offset``: every tensor starts that many elements into a larger
+    buffer (a pointer that is not 16-byte aligned for 1)."""
     gen = torch.Generator().manual_seed(seed)
-    f1, f2 = ((torch.rand(b, h, w, c, generator=gen) * 2 - 1).to(dtype).cuda()
+    f1, f2 = ((torch.rand(b, c, h, w, generator=gen) * 2 - 1).to(dtype)
               for _ in range(2))
-    flow = ((torch.rand(b, 2, h, w, generator=gen) * 2 - 1)
-            * 1.5 * max_flow).cuda().permute(0, 2, 3, 1)
-    mask = torch.rand(b, h, w, 1, generator=gen).cuda()
+    if saturate:
+        flow = torch.where(torch.rand(b, 2, h, w, generator=gen) < 0.5,
+                           -4.0, 4.0) * max_flow
+    else:
+        flow = (torch.rand(b, 2, h, w, generator=gen) * 2 - 1) * 1.5 * max_flow
+    mask = torch.rand(b, 1, h, w, generator=gen)
+
+    def put(x):
+        if layout == "nhwc":
+            return offset_view(x.permute(0, 2, 3, 1).cuda(), offset)
+        return offset_view(x.cuda(), offset).permute(0, 2, 3, 1)
+
     t = torch.tensor(ts, dtype=torch.float32).cuda()
-    return f1, f2, flow, mask, t
+    return put(f1), put(f2), put(flow), put(mask), t
 
 
-def check_sampler(b, h, w, c, max_flow, ts, dtype=torch.bfloat16) -> float:
+SAMPLER_TS8 = [0.5, 0.25, 0.8, 0.1, 0.9, 0.33, 0.6, 0.75]
+
+
+def check_sampler(b, h, w, c, max_flow, ts, dtype=torch.bfloat16,
+                  **layout) -> float:
     """The sample_fused kernel vs its plain version on the card: out, g0
-    and g1 within SAMPLER_BOUND."""
+    and g1 within SAMPLER_BOUND; prints whether all three are
+    bit-identical, and the path the kernel reports, which must be the tiled
+    one for gray frames in the flow model's layout and the general one for
+    RGB and a contiguous NHWC flow (column stride 2)."""
     from ai_based_frame_interpolation_torch.ops.warp_fused import (
-        sample_fused, sample_fused_reference)
+        kernel_path, sample_fused, sample_fused_reference)
 
-    args = sampler_inputs(b, h, w, c, max_flow, ts, dtype)
+    args = sampler_inputs(b, h, w, c, max_flow, ts, dtype, **layout)
+    path = kernel_path(*args[:4])
+    expect = "general" if c == 3 or layout.get("layout") == "nhwc" else "tiled"
+    assert path == expect, f"sample_fused took the {path} path, not {expect}"
     before = sample_fused.launches
     got = sample_fused(*args, max_flow=max_flow)
     torch.cuda.synchronize()
     assert sample_fused.launches == before + 1, "sample_fused did not launch"
     want = sample_fused_reference(*args, max_flow=max_flow)
     errs = [float((g - r).abs().max()) for g, r in zip(got, want)]
-    print(f"sample_fused B={b} {h}x{w} C={c} mf{max_flow} {dtype} t={ts}: "
-          f"max|kernel-plain| out/g0/g1 = "
-          f"{' / '.join(f'{e:.3g}' for e in errs)}", flush=True)
+    exact = all(torch.equal(g, r) for g, r in zip(got, want))
+    print(f"sample_fused B={b} {h}x{w} C={c} mf{max_flow} {dtype} t={ts} "
+          f"{layout or ''} ({path}): max|kernel-plain| out/g0/g1 = "
+          f"{' / '.join(f'{e:.3g}' for e in errs)}"
+          f"{', bit-identical' if exact else ''}", flush=True)
     for g in got:
         assert g.shape == (b, h, w, c) and g.dtype == torch.float32
-        assert bool(torch.isfinite(g).all())
+        assert g.is_contiguous() and bool(torch.isfinite(g).all())
     assert max(errs) <= SAMPLER_BOUND, f"sampler disagrees by {max(errs)}"
     return max(errs)
+
+
+def check_samplers(record) -> None:
+    """Phase 2's sampler part: the flow path's 8x1088x1920 at mf16 with a
+    time per item, a 1080p frame at mf32, and the tiled path's edges: tiles
+    that end mid-image (100x200, 129x257), images narrower or shorter than
+    the reach (24x24, 37x53, H = 2, W = 8 and 2, 9x7), flows that saturate
+    the clamp in every direction (t = 0 and 1 too), B=8 off the tile,
+    pointers off 16-byte alignment, rows that are not 16-byte multiples,
+    f32 frames, a reach of 64; and the general path's: contiguous NHWC (a
+    flow at column stride 2) and RGB."""
+    errs = [check_sampler(8, 1088, 1920, 1, 16, SAMPLER_TS8),
+            check_sampler(1, 1088, 1920, 1, 32, [0.5]),
+            check_sampler(3, 100, 200, 1, 16, [0.2, 0.5, 0.9]),
+            check_sampler(2, 24, 24, 1, 16, [0.4, 0.6]),
+            check_sampler(2, 2, 64, 1, 16, [0.3, 0.8]),
+            check_sampler(1, 40, 8, 1, 4, [0.5]),
+            check_sampler(2, 129, 257, 1, 16, [0.33, 0.7]),
+            check_sampler(2, 37, 53, 1, 16, [0.4, 0.6]),
+            check_sampler(2, 2, 70, 1, 16, [0.3, 0.8]),
+            check_sampler(1, 40, 2, 1, 4, [0.5]),
+            check_sampler(2, 9, 7, 1, 4, [0.4, 0.6]),
+            check_sampler(2, 72, 160, 1, 8, [0.0, 1.0], saturate=True),
+            check_sampler(1, 96, 200, 1, 16, [0.5], saturate=True),
+            check_sampler(8, 64, 128, 1, 16, SAMPLER_TS8),
+            check_sampler(2, 72, 160, 1, 16, [0.5, 0.3], layout="nhwc"),
+            check_sampler(2, 37, 53, 1, 16, [0.4, 0.6], offset=1),
+            check_sampler(2, 72, 160, 1, 16, [0.5, 0.3], offset=1),
+            check_sampler(2, 72, 160, 1, 8, [0.4, 0.6], torch.float32,
+                          offset=1),
+            check_sampler(2, 72, 160, 3, 16, [0.5, 0.3]),
+            check_sampler(2, 72, 160, 3, 16, [0.5, 0.3], layout="nhwc"),
+            check_sampler(2, 72, 160, 1, 8, [0.4, 0.6], torch.float32),
+            check_sampler(1, 72, 160, 1, 64, [0.5])]
+    record["sample_fused_max_abs_err"] = max(errs)
 
 
 def ssim_inputs(b, h, w, c, seed=0, dtype=torch.uint8):
@@ -444,9 +512,19 @@ def check_ssim(b, h, w, c, dtype=torch.uint8, same=False) -> float:
 def check_ssim_kernels(record) -> None:
     """Phase 2's SSIM part: the eval path's shapes (unpadded), 720p and 4K,
     RGB, the smallest shape JAX tiles (70x16), one window (7x7), f32
-    inputs, identical images, and two runs on the 1080p batch bit for bit."""
+    inputs, identical images, the kernel's strip and band edges (uint8
+    strips of 256 valid columns and f32 strips of 64, at one strip, one
+    column more and one less; bands of 2 rows at one image and one
+    channel, 63, 64 and 65 valid rows: a last band of 1 row for the odd
+    counts), two runs on the 1080p batch bit for bit, and two of its
+    images alone (other bands) bit for bit with the batch. The kernel's
+    partials per image plane must be the ones ops/ssim_fused.py mirrors."""
     from ai_based_frame_interpolation_torch.ops.ssim_fused import (
-        ssim_eval_auto)
+        _lib, partials_per_plane, ssim_eval_auto)
+
+    for h, w in ((256, 256), (1080, 1920), (71, 263), (7, 7), (6, 40)):
+        assert _lib().ssim_eval_tiles(h, w) == partials_per_plane(h, w), \
+            f"ops/ssim_fused.py mirrors other partials at {h}x{w}"
 
     errs = {"8x256x256": check_ssim(8, 256, 256, 1),
             "8x1080x1920": check_ssim(8, 1080, 1920, 1),
@@ -456,10 +534,20 @@ def check_ssim_kernels(record) -> None:
             "2x70x16": check_ssim(2, 70, 16, 1),
             "1x7x7": check_ssim(1, 7, 7, 1),
             "2x64x96_f32": check_ssim(2, 64, 96, 1, torch.float32),
-            "identical_2x256x256": check_ssim(2, 256, 256, 1, same=True)}
+            "identical_2x256x256": check_ssim(2, 256, 256, 1, same=True),
+            "1x70x262": check_ssim(1, 70, 262, 1),
+            "1x71x263": check_ssim(1, 71, 263, 1),
+            "1x69x261": check_ssim(1, 69, 261, 1),
+            "2x135x519": check_ssim(2, 135, 519, 1),
+            "1x70x70_f32": check_ssim(1, 70, 70, 1, torch.float32),
+            "1x71x71_f32": check_ssim(1, 71, 71, 1, torch.float32),
+            "1x69x69_f32": check_ssim(1, 69, 69, 1, torch.float32)}
     x, y = ssim_inputs(8, 1080, 1920, 1, seed=7)
     first, second = ssim_eval_auto(x, y), ssim_eval_auto(x, y)
     assert torch.equal(first, second), "ssim_eval is not deterministic"
+    # alone, an image takes other bands (B sizes them): the same bits
+    alone = torch.cat([ssim_eval_auto(x[i:i + 1], y[i:i + 1]) for i in (0, 7)])
+    assert torch.equal(alone, first[[0, 7]]), "ssim_eval's bits depend on the batch"
     print(f"ssim_eval 8x1080x1920 twice: bit-identical {first.tolist()}",
           flush=True)
     record["ssim_eval_errs"] = errs
@@ -906,17 +994,7 @@ def check_heads(record) -> None:
 def check_kernels(record) -> None:
     """Each kernel against its plain version on the card."""
     check_heads(record)
-    # the sampler: the flow path's 8x1088x1920 at mf16 with a time per
-    # item, a 1080p frame at mf32, odd sizes, RGB, f32 frames, and frames
-    # narrower than 2*max_flow + 2
-    errs = [check_sampler(8, 1088, 1920, 1, 16,
-                          [0.5, 0.25, 0.8, 0.1, 0.9, 0.33, 0.6, 0.75]),
-            check_sampler(1, 1088, 1920, 1, 32, [0.5]),
-            check_sampler(2, 129, 257, 1, 16, [0.33, 0.7]),
-            check_sampler(2, 72, 160, 3, 16, [0.5, 0.3]),
-            check_sampler(2, 72, 160, 1, 8, [0.4, 0.6], torch.float32),
-            check_sampler(2, 9, 7, 1, 4, [0.4, 0.6])]
-    record["sample_fused_max_abs_err"] = max(errs)
+    check_samplers(record)
     check_ssim_kernels(record)
     check_core_kernels(record)
     check_head_routes(record)
@@ -1250,6 +1328,45 @@ def device_busy_ms(fn):
     return wall_ms, (busy_us / 1e3 if busy_us > 0 else None)
 
 
+def kernel_device_ms(fn, names, iters: int, parts=None):
+    """Device ms per call of ``fn`` in the kernels whose name holds one of
+    ``names``, by torch.profiler over ``iters`` calls after a warm-up (the
+    kernels' own time, without the host's launch cost); None if the
+    profiler recorded none. ``parts``: a dict that receives the ms per
+    call of each kernel, by its function name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):          # a window now and then records no kernel
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        events = [ev for ev in prof.key_averages()
+                  if ev.device_type == torch.autograd.DeviceType.CUDA]
+        if events:
+            break
+    us = 0.0
+    for ev in events:
+        if not any(n in ev.key for n in names):
+            continue
+        t = getattr(ev, "self_device_time_total",
+                    getattr(ev, "self_cuda_time_total", 0))
+        us += t
+        if parts is not None:
+            key = ev.key.replace("(anonymous namespace)::", "")
+            found = re.search(r"([A-Za-z_]\w*)\s*[<(]", key)
+            name = found.group(1) if found else key[:40]
+            parts[name] = parts.get(name, 0.0) + t / 1e3 / iters
+    return us / 1e3 / iters if us > 0 else None
+
+
+def _ms(v) -> str:
+    return "not measured" if v is None else f"{v:.4f} ms"
+
+
 def run_eval(label, engine, root, hw, expect, out_dir) -> dict:
     """``evaluate_model(methods=("unet", "linear"), batch_size=8)`` over the
     fixture at ``root``: launch counts, every per-triplet metric against the
@@ -1383,24 +1500,32 @@ def eval_path(record, unet, flow) -> dict:
 
 
 def time_ssim(smi, b, h, w) -> dict:
-    """The SSIM at b x h x w gray uint8: kernel, plain and bound. No single
-    PyTorch call computes skimage's SSIM, so there is no library time."""
+    """The SSIM at b x h x w gray uint8: kernel, plain and bound. ``ms``:
+    CUDA events over back-to-back wrapper calls (the host's cost of each
+    call included); ``device_ms``: the kernel's own device time per call
+    (both of its launches, torch.profiler). No single PyTorch call
+    computes skimage's SSIM, so there is no library time."""
     from ai_based_frame_interpolation_torch.ops.ssim import ssim_eval
     from ai_based_frame_interpolation_torch.ops.ssim_fused import (
         ssim_eval_auto)
 
     x, y = ssim_inputs(b, h, w, 1, seed=11)
     k_ms = cuda_ms(lambda: ssim_eval_auto(x, y), 20)
+    parts = {}
+    d_ms = kernel_device_ms(lambda: ssim_eval_auto(x, y), ("ssim",), 20,
+                            parts)
     p_ms = cuda_ms(lambda: ssim_eval(x, y), 5)
     flops, byts = ssim_flops_bytes(b, h, w, 1)
     bound_ms, bound_by = bound(flops, byts, H100_F32_FLOPS)
-    print(f"[{smi}] ssim_eval {b}x{h}x{w} gray uint8: kernel {k_ms:.4f} ms, "
-          f"plain {p_ms:.4f} ms, library none (no single PyTorch call "
+    print(f"[{smi}] ssim_eval {b}x{h}x{w} gray uint8: kernel {k_ms:.4f} ms "
+          f"(events over wrapper calls), device {_ms(d_ms)} (profiler: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in parts.items())
+          + f"), plain {p_ms:.4f} ms, library none (no single PyTorch call "
           f"computes skimage's SSIM), bound {bound_ms:.4f} ms ({bound_by}: "
           f"{flops / 1e9:.3f} GFLOP, {byts / 1e6:.2f} MB)", flush=True)
-    return {"ms": k_ms, "plain_ms": p_ms, "library_ms": None,
-            "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops,
-            "bytes": byts}
+    return {"ms": k_ms, "device_ms": d_ms, "device_parts": parts,
+            "plain_ms": p_ms, "library_ms": None, "bound_ms": bound_ms,
+            "bound_by": bound_by, "flops": flops, "bytes": byts}
 
 
 def time_png_decode(smi) -> dict:
@@ -1608,29 +1733,35 @@ def summed(parts, f32=False) -> dict:
     return out
 
 
-def time_sampler(smi, max_flow=16) -> dict:
-    """The sampler at 1x1088x1920 gray bf16: kernel, plain and bound. No
-    single PyTorch call computes the shifts warp (``F.grid_sample`` is the
-    exact 2-D warp, with the x field read at the output row and no clamp),
-    so there is no library time."""
+def time_sampler(smi, b=1, max_flow=16) -> dict:
+    """The sampler at b x 1088 x 1920 gray bf16 (b=1: one flow sample of a
+    pair; b=8: the flow engine's b8 dispatch): kernel, plain and bound.
+    ``ms``: CUDA events over back-to-back wrapper calls (the host's cost of
+    each call included); ``device_ms``: the kernel's own device time per
+    call (torch.profiler). No single PyTorch call computes the shifts warp
+    (``F.grid_sample`` is the exact 2-D warp, with the x field read at the
+    output row and no clamp), so there is no library time."""
     from ai_based_frame_interpolation_torch.ops.warp_fused import (
         sample_fused, sample_fused_reference)
 
-    b, h, w, c = 1, 1088, 1920, 1
-    args = sampler_inputs(b, h, w, c, max_flow, [0.5])
+    h, w, c = 1088, 1920, 1
+    args = sampler_inputs(b, h, w, c, max_flow, SAMPLER_TS8[:b])
     k_ms = cuda_ms(lambda: sample_fused(*args, max_flow=max_flow), 20)
+    d_ms = kernel_device_ms(lambda: sample_fused(*args, max_flow=max_flow),
+                            ("sample",), 20)
     p_ms = cuda_ms(lambda: sample_fused_reference(*args, max_flow=max_flow),
-                   10)
+                   10 if b == 1 else 3)
     flops, byts = sampler_flops_bytes(b, h, w, c)
     bound_ms, bound_by = bound(flops, byts, H100_F32_FLOPS)
-    print(f"[{smi}] sample_fused 1x1088x1920 gray bf16 mf{max_flow}: kernel "
-          f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, library none (no single "
+    print(f"[{smi}] sample_fused {b}x{h}x{w} gray bf16 mf{max_flow}: kernel "
+          f"{k_ms:.4f} ms (events over wrapper calls), device {_ms(d_ms)} "
+          f"(profiler), plain {p_ms:.4f} ms, library none (no single "
           f"PyTorch call computes the shifts warp), bound {bound_ms:.4f} ms "
           f"({bound_by}: {flops / 1e9:.3f} GFLOP, {byts / 1e6:.2f} MB)",
           flush=True)
-    return {"ms": k_ms, "plain_ms": p_ms, "library_ms": None,
-            "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops,
-            "bytes": byts}
+    return {"ms": k_ms, "device_ms": d_ms, "plain_ms": p_ms,
+            "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
+            "flops": flops, "bytes": byts}
 
 
 def main() -> int:
@@ -1704,6 +1835,7 @@ def main() -> int:
             ("refine_head_direct_f32_w16", (16, 4, 2, False, torch.float32))):
         timings[f"{key}_1088x1920"] = time_head(smi, *args)
     timings["sample_fused_1088x1920"] = time_sampler(smi)
+    timings["sample_fused_8x1088x1920"] = time_sampler(smi, 8)
     timings["ssim_eval_8x256x256"] = time_ssim(smi, 8, 256, 256)
     timings["ssim_eval_8x1080x1920"] = time_ssim(smi, 8, 1080, 1920)
     timings["ssim_eval_1x2160x3840"] = time_ssim(smi, 1, 2160, 3840)
