@@ -1,8 +1,9 @@
 """Configuration dataclasses of the PyTorch port.
 
-The port keeps its own copy of the JAX package's ``ModelConfig`` and
-``ServeConfig`` with the same field names and defaults, so one
-``model_config.json`` means the same model on both sides. The comments on
+The port keeps its own copy of the JAX package's ``ModelConfig``,
+``ServeConfig`` and ``VideoConfig`` with the same field names and
+defaults, so one ``model_config.json`` means the same model on both
+sides. The comments on
 each field say what it selects; the JAX package's ``config.py`` holds the
 measurements behind the defaults.
 """
@@ -11,6 +12,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
+from typing import Optional
 
 
 @dataclass(frozen=True)
@@ -83,6 +85,17 @@ class ServeConfig:
     # requests per dispatch, after an optional straggler wait
     max_batch: int = 8
     batch_window_ms: float = 0.0
+
+
+@dataclass(frozen=True)
+class VideoConfig:
+    """Streaming video interpolation (``InterpolationEngine``'s
+    ``interpolate_video_file``)."""
+
+    factor: int = 2              # 2x or 4x (recursive midpoint bisection)
+    batch_pairs: int = 8         # frame pairs per device batch
+    fps: Optional[float] = None  # None = scale source fps by factor
+    codec: str = "mp4v"
 
 
 def replace(cfg, **kwargs):

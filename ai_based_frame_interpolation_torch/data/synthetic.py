@@ -4,7 +4,9 @@ the port's PNG encoder.
 A white disc translating left to right with additive noise, as the
 reference's ``demo_simple.py:17-40`` draws it, from a seeded numpy
 generator, in the reference's layout ``<root>/<video>/frame_XXX.png``.
-The JAX module's other generators wait for the training and video slices.
+:func:`write_fixture_video` writes the same disc as a small MP4 through
+``data/video.py`` (OpenCV). The JAX module's other generators wait for the
+training slice.
 """
 
 from __future__ import annotations
@@ -54,3 +56,18 @@ def write_fixture_tree(root: str, num_videos: int = 1, num_frames: int = 5,
             save_image(os.path.join(vdir, f"frame_{i:03d}.png"), f)
         dirs.append(vdir)
     return dirs
+
+
+def write_fixture_video(path: str, num_frames: int = 30, height: int = 128,
+                        width: int = 128, fps: float = 30.0,
+                        seed: int = 0) -> str:
+    """Write a small MP4 of the moving circle (for video-pipeline tests)."""
+    from .video import VideoWriter
+
+    frames = moving_circle_frames(num_frames, height, width, channels=3,
+                                  step=max(1, width // (num_frames + 2)),
+                                  seed=seed)
+    with VideoWriter(path, fps=fps) as w:
+        for f in frames:
+            w.write(f)
+    return path

@@ -7,7 +7,7 @@ good / 20-25 acceptable / <20 poor, SSIM >0.95 / 0.90 / 0.80,
 The CSV is written with the ``csv`` module in the columns and row order
 that pandas writes; the card's machine has no pandas and no matplotlib, so
 the plots, the frame comparisons and ``generate_full_report`` wait for the
-CLI slice (ROADMAP Queue A item 13).
+CLI slice (ROADMAP Queue A, serving and the CLI).
 """
 
 from __future__ import annotations

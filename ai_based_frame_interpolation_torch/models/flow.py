@@ -54,15 +54,18 @@ class FlowInterpolator(nn.Module):
         if cfg.flow_scale < 1:
             raise ValueError("flow_scale must be >= 1")
         if cfg.flow_bidir:
-            raise NotImplementedError("flow_bidir is not ported yet (ROADMAP "
-                                      "Queue A item 8, bidirectional field)")
+            raise NotImplementedError(
+                "flow_bidir is not ported yet (ROADMAP Queue A, the "
+                "remaining model options: the bidirectional field)")
         if cfg.flow_cascade > 0:
-            raise NotImplementedError("flow_cascade is not ported yet "
-                                      "(ROADMAP Queue A item 8, cascade)")
+            raise NotImplementedError(
+                "flow_cascade is not ported yet (ROADMAP Queue A, the "
+                "remaining model options: the cascade)")
         if cfg.warp_impl != "shifts":
             raise NotImplementedError(
                 f"warp_impl={cfg.warp_impl!r} is not ported yet (ROADMAP "
-                "Queue A item 8); the port has the 'shifts' warp")
+                "Queue A, the remaining model options); the port has the "
+                "'shifts' warp")
         self.cfg = cfg
         self.compute_dtype = compute_dtype
         self.folded = folded

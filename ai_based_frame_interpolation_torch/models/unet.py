@@ -184,7 +184,54 @@ def _nhwc(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 2, 3, 1)
 
 
-class FrameInterpolationUNet(nn.Module):
+class RefineHead:
+    """The full-resolution refinement head of the U-Net and tower families,
+    as a mixin: ``refine1``, ``refine2`` (or ``refine2_dw`` and
+    ``refine2_pw``) and ``refine_out`` on the module, named in
+    ``head_names``, ``has_head`` set where the model has them."""
+
+    def pack_head(self) -> None:
+        """Build the head kernel's weight layouts once, from the weights as
+        loaded and placed now (``ops.refine.pack_head_weights``); the
+        engine calls it after loading. Forward passes them to every head
+        call, so it must be called again after the weights change."""
+        self.packed_head = pack_head_weights(
+            self.head_params(), self.compute_dtype) if self.has_head else None
+
+    def head_params(self) -> dict:
+        """The refinement head's weights, ``{name: {"weight", "bias"}}``."""
+        return {n: {"weight": getattr(self, n).weight,
+                    "bias": getattr(self, n).bias} for n in self.head_names}
+
+    def head(self, y: torch.Tensor, p1: torch.Tensor,
+             p2: torch.Tensor) -> torch.Tensor:
+        """The head on the f32 prediction ``y`` in the stem's
+        space-to-depth layout, with planes ``p1``, ``p2`` at the head's
+        factor ``g = refine_factor`` (each family lays them out its own
+        way; the frames themselves at g = 1): at g = 1 through
+        :meth:`refine` (the main path's kernel on the card); at a coarser
+        factor, which has no kernel (nor has it in the JAX package),
+        through the plain head."""
+        r, g = self.cfg.space_to_depth, self.cfg.refine_factor
+        yg = depth_to_space(y, r // g)
+        if g == 1:
+            return self.refine(yg, p1, p2)
+        out = refine_head_reference(_nhwc(yg), (_nhwc(p1), _nhwc(p2)),
+                                    self.head_params(), self.compute_dtype)
+        return depth_to_space(out.permute(0, 3, 1, 2), g)
+
+    def refine(self, pred: torch.Tensor, frame1: torch.Tensor,
+               frame2: torch.Tensor) -> torch.Tensor:
+        """The full-resolution head (``refine_factor=1``, dense or
+        depthwise) on the f32 pre-refine prediction ``[B,C,H,W]``, with the
+        frames as its planes; NCHW out in the compute dtype."""
+        out = refine_head(_nhwc(pred), (_nhwc(frame1), _nhwc(frame2)),
+                          self.head_params(), self.compute_dtype,
+                          self.packed_head)
+        return out.permute(0, 3, 1, 2)
+
+
+class FrameInterpolationUNet(RefineHead, nn.Module):
     """Two frames in, the midpoint out (NCHW), with the optional
     space-to-depth stem, residual midpoint and refinement head."""
 
@@ -211,16 +258,11 @@ class FrameInterpolationUNet(nn.Module):
             else:
                 self.refine2 = nn.Conv2d(w, w, 3, padding=1)
             self.refine_out = nn.Conv2d(w, cg, 1)
+        self.head_names = ("refine1", "refine2_dw", "refine2_pw",
+                           "refine_out") if cfg.refine_depthwise else \
+            ("refine1", "refine2", "refine_out")
         self.packed_head: Optional[dict] = None
         self.packed_core: Optional[dict] = None
-
-    def pack_head(self) -> None:
-        """Build the head kernel's weight layouts once, from the weights as
-        loaded and placed now (``ops.refine.pack_head_weights``); the
-        engine calls it after loading. Forward passes them to every head
-        call, so it must be called again after the weights change."""
-        self.packed_head = pack_head_weights(
-            self.head_params(), self.compute_dtype) if self.has_head else None
 
     def pack_core(self) -> None:
         """Build the core kernels' weight layouts once, as :meth:`pack_head`
@@ -229,14 +271,6 @@ class FrameInterpolationUNet(nn.Module):
         from .core_t import pack_core_weights
 
         self.packed_core = pack_core_weights(self)
-
-    def head_params(self) -> dict:
-        """The refinement head's weights, ``{name: {"weight", "bias"}}``."""
-        names = ("refine1", "refine2_dw", "refine2_pw", "refine_out") \
-            if self.cfg.refine_depthwise else \
-            ("refine1", "refine2", "refine_out")
-        return {n: {"weight": getattr(self, n).weight,
-                    "bias": getattr(self, n).bias} for n in names}
 
     def forward(self, frame1: torch.Tensor, frame2: torch.Tensor,
                 t: Optional[torch.Tensor] = None,
@@ -260,24 +294,8 @@ class FrameInterpolationUNet(nn.Module):
         if not self.has_head or skip_refine:
             return depth_to_space(y, r)
         g = cfg.refine_factor
-        # the full-resolution head is the main path's kernel; a head at a
-        # coarser factor has none (nor has it in the JAX package)
-        if g == 1:
-            return self.refine(depth_to_space(y, r), frame1, frame2)
-        yg, p1, p2 = (depth_to_space(a, r // g) for a in (y, f1, f2))
-        out = refine_head_reference(_nhwc(yg), (_nhwc(p1), _nhwc(p2)),
-                                    self.head_params(), cdt)
-        return depth_to_space(out.permute(0, 3, 1, 2), g)
-
-    def refine(self, pred: torch.Tensor, frame1: torch.Tensor,
-               frame2: torch.Tensor) -> torch.Tensor:
-        """The full-resolution head (``refine_factor=1``, dense or
-        depthwise) on the f32 pre-refine prediction ``[B,C,H,W]``, with the
-        frames as its planes; NCHW out in the compute dtype."""
-        out = refine_head(_nhwc(pred), (_nhwc(frame1), _nhwc(frame2)),
-                          self.head_params(), self.compute_dtype,
-                          self.packed_head)
-        return out.permute(0, 3, 1, 2)
+        return self.head(y, depth_to_space(f1, r // g),
+                         depth_to_space(f2, r // g))
 
 
 def count_parameters(model: nn.Module) -> int:

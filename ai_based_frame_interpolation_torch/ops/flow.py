@@ -3,7 +3,7 @@ linear blend, and OpenCV's Farneback flow with a half-step warp.
 
 ``cv2`` is imported inside :func:`farneback_midpoint` only: the card's
 machine has no OpenCV, so the ``optical_flow`` method runs where OpenCV
-is installed and not on the card (ROADMAP Queue A item 13).
+is installed and not on the card (ROADMAP Queue A, serving and the CLI).
 """
 
 from __future__ import annotations

@@ -44,7 +44,8 @@ def _check_png(path: str) -> None:
     if os.path.splitext(path)[1].lower() != ".png":
         raise NotImplementedError(
             f"{path}: the port reads and writes PNG only; JPEG and BMP "
-            "decoding without OpenCV is ROADMAP Queue A item 13")
+            "decoding without OpenCV waits for ROADMAP Queue A, serving "
+            "and the CLI")
 
 
 def resize_uint8(img: np.ndarray, size: Tuple[int, int]) -> np.ndarray:

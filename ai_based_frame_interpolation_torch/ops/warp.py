@@ -16,8 +16,8 @@ from __future__ import annotations
 
 import torch
 
-_NOT_PORTED = ("warp_impl={!r} is not ported yet (ROADMAP Queue A item 8); "
-               "the port has the 'shifts' warp")
+_NOT_PORTED = ("warp_impl={!r} is not ported yet (ROADMAP Queue A, the "
+               "remaining model options); the port has the 'shifts' warp")
 
 
 def _warp_axis(img: torch.Tensor, disp: torch.Tensor, axis: int,

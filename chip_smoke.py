@@ -45,11 +45,13 @@ Drives the port only (it imports nothing of JAX or of the JAX package):
    (``core_impl="pallas"``: 3 double-conv, 2 up-block and 1 head launch per
    dispatch, also within 1 LSB of the default route on the same weights),
    the option core again with the align-corners decoder (5 double-conv
-   launches, the upsample composed) against its own default route, and
-   with the depthwise head (``refine_depthwise=True``), then the f32
-   production engine (``compute_dtype=torch.float32``) at b2 1080p on the
-   default route (the head on the direct convs: 2 + 1 launches) and on the
-   option core (10 more direct-conv launches), TF32 off for the phase;
+   launches, the upsample composed; that engine built on the default route
+   and ``core_impl`` assigned after its run, which packs the core) against
+   its own default route, and with the depthwise head
+   (``refine_depthwise=True``), then the f32 production engine
+   (``compute_dtype=torch.float32``) at b2 1080p on the default route
+   (the head on the direct convs: 2 + 1 launches) and on the option core
+   (10 more direct-conv launches), TF32 off for the phase;
 4. drives the flow path the same way: the full-width flow production engine
    (base 32, depth 4, flow_scale 4, refinement head 16, shifts warp,
    max_flow 16) on 8 gray 1080p pairs, checked against the same modules
@@ -71,12 +73,29 @@ Drives the port only (it imports nothing of JAX or of the JAX package):
    filters, as adaptive encoders mix them) and with the flow engine at
    256x256, counts set to 0 before each run and read after, every
    per-triplet PSNR and SSIM held against the plain metrics on the same
-   arrays, and the JSON, CSV and markdown reports written and read back.
+   arrays, and the JSON, CSV and markdown reports written and read back;
+7. drives the video paths (also before 5), on 17 seeded 1080p gray
+   frames: the U-Net engine of phase 3 through ``interpolate_video_frames``
+   at 2x and 4x (two batches of 8 pairs; 1 and 3 ``refine_head`` launches a
+   batch), the flow engine of phase 4 through ``retime_video_frames`` at
+   rate 2.5 over 9 frames (one ``sample_fused`` and one w16 head launch per
+   padded time), and the tower (``TOWER_PROD``: slim decoder, s2d 4, w64
+   head, base 64, depth 4, random weights from a seed) through its
+   shared-encode stream at 2x; every original bit for bit, every
+   in-between within 1 LSB of the engine's pair calls on the same pairs
+   (``interpolate_batch``; at 4x the 4x pair function on the stream's
+   batches of 8, and ``generate_intermediate_frames`` one pair a call
+   recorded beside it; ``interpolate_at``), the launch and route counts
+   asserted; then each stream once warm over 65 frames in host memory
+   (host clock over the whole generator: output fps), once with its host
+   steps timed, and once under torch.profiler (the device's busy share),
+   beside the bare pair functions at b8 (the U-Net 2x's from phase 5),
+   printed after phase 5 with the ratio.
 
 Besides each kernel's launch counter, the wrappers that pick a route
 (``refine_head``, ``double_conv_fused``, ``up_double_conv_fused``) count
 their launches under it (``.routes``); the kernels line reads those counts
-over the main-path runs of phases 3, 4 and 6.
+over the main-path runs of phases 3, 4, 6 and 7.
 
 Any failure raises and exits non-zero. It prints the kernel record as one
 JSON line before the last, and as the last line
@@ -108,6 +127,11 @@ PROD = dict(space_to_depth=4, residual=True, refine_width=64,
             upsample="half_pixel")
 FLOW_PROD = dict(arch="flow", base_width=32, flow_scale=4, refine_width=16,
                  warp_impl="shifts", max_flow=16)
+# bench.py's defaults with --arch tower and the README's streaming option
+TOWER_PROD = dict(arch="tower", space_to_depth=4, residual=True,
+                  refine_width=64, upsample="half_pixel", slim_decoder=True)
+VIDEO_FRAMES = 17              # checked streams: 16 pairs, two batches of 8
+VIDEO_TIMED_FRAMES = 65        # the timed streams: 64 pairs, eight batches
 H100_F32_FLOPS = 67e12         # f32 outside the tensor cores, FLOP/s
 SAMPLER_BOUND = 1e-5           # f32 lerps rounded where the plain version rounds
 # the repo's cross-route SSIM bound (tests/test_pallas_ssim.py): exact
@@ -916,7 +940,7 @@ def route_counts() -> dict:
             for key, n in getattr(fn, "routes", {}).items() if n}
 
 
-# every route's launches over the main-path runs (phases 3, 4 and 6), each
+# every route's launches over the main-path runs (phases 3, 4, 6, 7), each
 # run read once after its counts were set to 0 (main_counts)
 MAIN_ROUTES = collections.Counter()
 
@@ -1082,17 +1106,27 @@ def core_path(record, xla_out, upsample="half_pixel"):
     to 0 just before and read just after; within 1 LSB of the same modules
     composed with the plain versions and of the default route. The
     half-pixel decoder runs 3 double_conv and 2 up_double_conv launches
-    per dispatch; the align-corners one 5 double_conv on the concat."""
+    per dispatch; the align-corners one 5 double_conv on the concat. That
+    engine is built on the default route, and ``core_impl`` is assigned
+    after its default-route run, as the JAX CLI assigns it: the setter
+    packs the core."""
     from ai_based_frame_interpolation_torch.config import ModelConfig
     from ai_based_frame_interpolation_torch.infer.engine import (
         InterpolationEngine)
 
     cfg = ModelConfig(**dict(PROD, upsample=upsample))
-    engine = InterpolationEngine.random_init(cfg, seed=0, core_impl="pallas")
     f1, f2 = frames(8, 1080, 1920, seed=1)
     if xla_out is None:
-        xla_out = InterpolationEngine.random_init(cfg, seed=0) \
-            .interpolate_batch(f1, f2)
+        engine = InterpolationEngine.random_init(cfg, seed=0)
+        xla_out = engine.interpolate_batch(f1, f2)
+        assert engine.model.packed_core is None
+        engine.core_impl = "pallas"
+        assert engine.model.packed_core is not None
+        print(f"U-Net option core ({upsample}): core_impl assigned after "
+              "construction; the core packed", flush=True)
+    else:
+        engine = InterpolationEngine.random_init(cfg, seed=0,
+                                                 core_impl="pallas")
     reset_counts()
     t0 = time.perf_counter()
     out = engine.interpolate_batch(f1, f2)
@@ -1499,6 +1533,255 @@ def eval_path(record, unet, flow) -> dict:
     return out
 
 
+def video_frames(n, h, w, seed):
+    """``n`` consecutive gray frames (a pattern moving 6 px a frame, with
+    noise), uint8 HWC."""
+    gen = np.random.default_rng(seed)
+    y, x = np.mgrid[0:h, 0:w].astype(np.float32)
+    base = 127 + 90 * np.sin(x / 23.0) * np.cos(y / 17.0)
+    return [np.clip(np.roll(base, 6 * i, axis=1) + gen.normal(0, 8, (h, w)),
+                    0, 255).astype(np.uint8)[..., None] for i in range(n)]
+
+
+def retime_schedule(n_frames, rate, batch_pairs, eps=1e-6):
+    """What ``retime_video_frames`` should output for ``n_frames`` inputs:
+    per output frame k, ``(i, None)`` (input frame i, passed through) or
+    ``(i, t)`` (pair i at time t); and the sampler calls it should make,
+    the largest time count of each group of ``batch_pairs`` pairs summed
+    over the groups. Worked out here from k / rate, for the check."""
+    out, per_pair = [], [0] * (n_frames - 1)
+    for k in range(int((n_frames - 1) * rate + eps) + 1):
+        tau = k / rate
+        i = min(int(tau + eps), n_frames - 1)
+        t = tau - i
+        if t <= eps:
+            out.append((i, None))
+        else:
+            out.append((i, t))
+            per_pair[i] += 1
+    calls = sum(max(per_pair[g:g + batch_pairs])
+                for g in range(0, n_frames - 1, batch_pairs))
+    return out, calls
+
+
+def check_video(label, got, originals, mids, launches, routes, want_launches,
+                want_routes) -> dict:
+    """A checked stream: the launch and route counts, ``originals``
+    ({output index: input frame}) bit for bit, every other output within
+    1 LSB of ``mids`` ({output index: the frame from a pair call})."""
+    assert launches == want_launches, \
+        f"video {label}: launches {launches}, not {want_launches}"
+    assert routes == want_routes, f"video {label}: routes {routes}"
+    assert len(got) == len(originals) + len(mids), f"video {label}: " \
+        f"{len(got)} frames, not {len(originals) + len(mids)}"
+    for k, frame in originals.items():
+        assert got[k].dtype == np.uint8 and np.array_equal(got[k], frame), \
+            f"video {label}: original at {k} changed"
+    du = max(int(np.abs(got[k].astype(np.int16) - m.astype(np.int16)).max())
+             for k, m in mids.items())
+    print(f"video {label}: {len(got)} frames, launches {launches}, originals "
+          f"bit for bit, in-betweens max uint8 diff {du} vs the pair calls",
+          flush=True)
+    assert du <= 1
+    return {"frames": len(got), "launches": launches, "routes": routes,
+            "max_uint8_diff_vs_pairs": du}
+
+
+@contextlib.contextmanager
+def stream_timers(split):
+    """Host clocks around a stream's host steps: the pinned upload
+    (stacking the frames and queueing the copy), the download (waiting for
+    the batch and its copy out) and the interleave, summed into ``split``
+    (seconds)."""
+    from ai_based_frame_interpolation_torch.infer import engine as eng
+    from ai_based_frame_interpolation_torch.ops import native
+
+    saved = (eng._Transfers.upload, eng._Transfers.download,
+             native.interleave)
+
+    def timed(key, fn):
+        def run(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            split[key] = split.get(key, 0.0) + time.perf_counter() - t0
+            return out
+        return run
+
+    eng._Transfers.upload = timed("upload_s", saved[0])
+    eng._Transfers.download = timed("download_wait_s", saved[1])
+    native.interleave = timed("interleave_s", saved[2])
+    try:
+        yield split
+    finally:
+        eng._Transfers.upload, eng._Transfers.download, \
+            native.interleave = saved
+
+
+def time_stream(smi, label, run, frames) -> dict:
+    """One warm run of a stream generator over ``frames`` (in host memory),
+    host clock over the whole generator; one more with the host steps
+    timed (``stream_timers``; the rest is the engine's enqueue of the
+    model and the generator); then one under torch.profiler for the
+    device's busy share."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    n = sum(1 for _ in run(frames))
+    s = time.perf_counter() - t0
+    with stream_timers({}) as split:
+        t0 = time.perf_counter()
+        sum(1 for _ in run(frames))
+        split["total_s"] = time.perf_counter() - t0
+    split["rest_s"] = split["total_s"] - sum(
+        v for k, v in split.items() if k != "total_s")
+    wall_ms, busy_ms = device_busy_ms(lambda: sum(1 for _ in run(frames)))
+    share = None if busy_ms is None else busy_ms / wall_ms
+    print(f"[{smi}] video {label}: {len(frames)} 1080p frames in, {n} out in "
+          f"{s * 1e3:.3f} ms, {n / s:.3f} output fps (host clock); a timed "
+          f"run's host split, ms: " + ", ".join(
+              f"{k[:-2]} {v * 1e3:.3f}" for k, v in split.items()) +
+          f"; profiled run {wall_ms:.3f} ms, device busy "
+          f"{'not recorded' if busy_ms is None else f'{busy_ms:.3f} ms'}",
+          flush=True)
+    return {"frames_in": len(frames), "frames_out": n, "seconds": s,
+            "output_fps": n / s, "host_split_s": split,
+            "profiled_ms": wall_ms, "device_busy_ms": busy_ms,
+            "device_busy_share": share}
+
+
+def time_bare(smi, label, fn, args, outputs, iters=10) -> dict:
+    """ms per call of an engine's pair function on device inputs (CUDA
+    events) and the output fps of ``outputs`` frames a call."""
+    ms = cuda_ms(lambda: fn(*args), iters, warmup=1)
+    print(f"[{smi}] bare {label}: {ms:.3f} ms/call, "
+          f"{outputs / (ms / 1e3):.3f} output fps", flush=True)
+    return {"ms_per_call": ms, "output_fps": outputs / (ms / 1e3)}
+
+
+def video_path(record, unet, flow, smi):
+    """The video paths at 1080p gray on ``VIDEO_FRAMES`` seeded frames, each
+    stream's counts set to 0 just before and read just after: the U-Net
+    production engine at 2x and 4x (``refine_head`` w64 once per forward:
+    1 and 3 a dispatch), the flow production engine retiming 24 -> 60 fps
+    (``retime_video_frames`` at 2.5; one ``sample_fused`` and one w16 head
+    launch per padded time) and the tower at 2x (the shared-encode stream;
+    one w64 head launch a dispatch). Then each stream warm over
+    ``VIDEO_TIMED_FRAMES`` frames with the host clock and once profiled,
+    and the bare pair functions it is compared with. Returns the record
+    and the launches under each route, for the kernels line."""
+    from ai_based_frame_interpolation_torch.config import ModelConfig
+    from ai_based_frame_interpolation_torch.infer.engine import (
+        InterpolationEngine)
+
+    fr = video_frames(VIDEO_FRAMES, 1080, 1920, seed=5)
+    n = len(fr) - 1
+    out, routes_total = {}, collections.Counter()
+    w64 = "refine_head w64/w64/bfloat16"
+
+    def counted(run):
+        reset_counts()
+        got = list(run())
+        routes = route_counts()
+        launches = main_counts()
+        routes_total.update(routes)
+        return got, launches, routes
+
+    # U-Net production, 2x and 4x
+    for factor in (2, 4):
+        got, launches, routes = counted(
+            lambda: unet.interpolate_video_frames(iter(fr), factor, 8))
+        if factor == 2:
+            want = unet.interpolate_batch(np.stack(fr[:-1]),
+                                          np.stack(fr[1:]))[:, None]
+        else:
+            # the 4x pair function on the stream's batches of 8 pairs: the
+            # bisection's second level starts from the first level's bf16
+            # midpoints, so at another batch size (cuDNN picks other
+            # algorithms) the quarter frames can move 2 LSB (recorded
+            # below against generate_intermediate_frames, one pair a call)
+            fn = unet._pair_fn(factor - 1, 2)
+            want = np.concatenate([fn(unet.model, unet._put(np.stack(
+                fr[g:g + 8])), unet._put(np.stack(fr[g + 1:g + 9])))
+                .cpu().numpy() for g in range(0, n, 8)])
+        mids = {factor * i + 1 + q: want[i, q] for i in range(n)
+                for q in range(factor - 1)}
+        per = 2 * (factor - 1)          # 2 dispatches x the forwards
+        out[f"unet_{factor}x"] = check_video(
+            f"U-Net {factor}x", got,
+            {factor * i: f for i, f in enumerate(fr)}, mids, launches,
+            routes, dict(NO_LAUNCHES, refine_head=per), {w64: per})
+        if factor == 4:
+            b1 = [np.stack(unet.generate_intermediate_frames(
+                fr[i], fr[i + 1], 3)) for i in range(n)]
+            by_time = [max(int(np.abs(got[4 * i + 1 + q].astype(np.int16)
+                                      - b1[i][q].astype(np.int16)).max())
+                           for i in range(n)) for q in range(3)]
+            print(f"video U-Net 4x vs generate_intermediate_frames (one pair "
+                  f"a call): max uint8 diff at t = 1/4, 1/2, 3/4: {by_time}",
+                  flush=True)
+            out["unet_4x"]["max_uint8_diff_vs_b1_by_time"] = by_time
+
+    # flow production, retiming 24 -> 60 fps over 9 frames
+    fr9, rate = fr[:9], 2.5
+    sched, calls = retime_schedule(len(fr9), rate, 8)
+    got, launches, routes = counted(
+        lambda: flow.retime_video_frames(iter(fr9), rate, batch_pairs=8))
+    originals = {k: fr9[i] for k, (i, t) in enumerate(sched) if t is None}
+    mids = {}
+    for i in range(len(fr9) - 1):
+        ks = [k for k, (j, t) in enumerate(sched) if j == i and t is not None]
+        for k, m in zip(ks, flow.interpolate_at(
+                fr9[i], fr9[i + 1], [sched[k][1] for k in ks])):
+            mids[k] = m
+    out["flow_retime_2.5"] = check_video(
+        f"flow retime x{rate}", got, originals, mids, launches, routes,
+        dict(NO_LAUNCHES, refine_head=calls, sample_fused=calls),
+        {"refine_head w16/w16/bfloat16": calls})
+    out["flow_retime_2.5"]["padded_time_calls"] = calls
+
+    # the tower at 2x: each frame encoded once
+    tower = InterpolationEngine.random_init(ModelConfig(**TOWER_PROD),
+                                            seed=0)
+    got, launches, routes = counted(
+        lambda: tower.interpolate_video_frames(iter(fr), 2, 8))
+    want = tower.interpolate_batch(np.stack(fr[:-1]), np.stack(fr[1:]))
+    out["tower_2x"] = check_video(
+        "tower 2x", got, {2 * i: f for i, f in enumerate(fr)},
+        {2 * i + 1: want[i] for i in range(n)}, launches, routes,
+        dict(NO_LAUNCHES, refine_head=2), {w64: 2})
+
+    # timings: each stream warm, then the bare pair functions at b8
+    timed = video_frames(VIDEO_TIMED_FRAMES, 1080, 1920, seed=6)
+    for key, run in (
+            ("unet_2x", lambda f: unet.interpolate_video_frames(iter(f), 2)),
+            ("unet_4x", lambda f: unet.interpolate_video_frames(iter(f), 4)),
+            ("flow_retime_2.5",
+             lambda f: flow.retime_video_frames(iter(f), rate)),
+            ("tower_2x",
+             lambda f: tower.interpolate_video_frames(iter(f), 2))):
+        out[key]["stream"] = time_stream(smi, key, run, timed)
+    # b8 on device inputs: 9 consecutive frames, their 8 pairs; the U-Net
+    # at 2x is phase 5's time_engine (the bare output fps beside it there)
+    x9 = unet._put(np.stack(timed[:9]))
+    pairs = (x9[:-1], x9[1:])
+    out["unet_4x"]["bare"] = time_bare(
+        smi, "U-Net _pair_fn(3, 2) b8 (4x)", unet._pair_fn(3, 2),
+        (unet.model, *pairs), 32)
+    # the timed stream's times: pairs alternate (0.4, 0.8) and (0.2, 0.6)
+    ts = torch.tensor([[0.4, 0.2] * 4, [0.8, 0.6] * 4], device=x9.device)
+    out["flow_retime_2.5"]["bare"] = time_bare(
+        smi, "flow _time_fn(2) b8 (retime x2.5: 20 frames a call)",
+        flow._time_fn(2), (flow.model, *pairs, ts), 20)
+    out["tower_2x"]["bare"] = time_bare(
+        smi, "tower _pair_fn(1, 1) b8 (2x)", tower._pair_fn(1, 1),
+        (tower.model, *pairs), 16)
+    out["tower_2x"]["bare_stream_step"] = time_bare(
+        smi, "tower _tower_stream_fn on 9 frames (2x)",
+        tower._tower_stream_fn(), (tower.model, x9), 16)
+    del tower, x9, pairs
+    record["video"] = out
+    return out, routes_total
+
+
 def time_ssim(smi, b, h, w) -> dict:
     """The SSIM at b x h x w gray uint8: kernel, plain and bound. ``ms``:
     CUDA events over back-to-back wrapper calls (the host's cost of each
@@ -1788,6 +2071,7 @@ def main() -> int:
     f32_path(record)
     flow, flow_launches = flow_path(record)    # 4.
     evals = eval_path(record, unet, flow)      # 6. (before 5 frees them)
+    video, video_routes = video_path(record, unet, flow, smi)   # 7.
 
     # 5. timings (CUDA events, after warm-up); the default U-Net route
     # before and after the option core
@@ -1800,6 +2084,16 @@ def main() -> int:
     del dw
     timings.update(time_engine(flow, "flow", smi, sizes))
     del flow
+    video["unet_2x"]["bare"] = timings["unet_b8"]
+    for key, run in video.items():
+        st, bare = run["stream"], run["bare"]
+        run["stream_over_bare"] = st["output_fps"] / bare["output_fps"]
+        share = st["device_busy_share"]
+        print(f"[{smi}] video {key}: stream {st['output_fps']:.3f} output "
+              f"fps; bare b8 {bare['output_fps']:.3f}; stream/bare "
+              f"{run['stream_over_bare']:.4f}; device busy "
+              f"{'not recorded' if share is None else f'{100 * share:.2f}%'} "
+              f"of a profiled stream run", flush=True)
     timings["refine_head_w64_1088x1920"] = time_head(smi, 64, 2, 0)
     timings["refine_head_w16_1088x1920"] = time_head(smi, 16, 4, 2)
     timings["refine_head_dw_1088x1920"] = time_head(smi, 64, 2, 0,
@@ -1863,16 +2157,19 @@ def main() -> int:
     record["main_routes"] = dict(MAIN_ROUTES)
     for name, cu, replaces, launches, err, tm in (
             ("refine_head_w64", "refine_head.cu", "refine_fused.py:417",
-             unet_launches["refine_head"],
+             unet_launches["refine_head"]
+             + video_routes["refine_head w64/w64/bfloat16"],
              record["refine_head_w64_max_abs_err"],
              "refine_head_w64_1088x1920"),
             ("refine_head_w16", "refine_head.cu", "refine_fused.py:417",
-             flow_launches["refine_head"],
+             flow_launches["refine_head"]
+             + video_routes["refine_head w16/w16/bfloat16"],
              record["refine_head_w16_max_abs_err"],
              "refine_head_w16_1088x1920"),
             ("sample_fused", "sample_fused.cu", "warp_fused.py:183",
-             flow_launches["sample_fused"], record["sample_fused_max_abs_err"],
-             "sample_fused_1088x1920"),
+             flow_launches["sample_fused"]
+             + video["flow_retime_2.5"]["launches"]["sample_fused"],
+             record["sample_fused_max_abs_err"], "sample_fused_1088x1920"),
             ("ssim_eval_256", "ssim_eval.cu", "ssim_fused.py:63",
              evals["unet_256"]["launches"]["ssim_eval"],
              ssim_errs["8x256x256"], "ssim_eval_8x256x256"),

@@ -264,7 +264,8 @@ def test_batcher_over_a_flow_engine():
     dict(flow_bidir=True), dict(flow_cascade=1), dict(warp_impl="pyramid"),
     dict(warp_impl="gather4"), dict(warp_impl="patch")])
 def test_flow_configs_out_of_scope_raise(extra):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 8"):
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP Queue A, the remaining model options"):
         t_build(TConfig(**dict(FLOW["fs2_r8"], **extra)))
 
 

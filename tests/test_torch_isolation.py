@@ -25,6 +25,9 @@ def test_importing_the_port_loads_no_jax():
         "import ai_based_frame_interpolation_torch.ops.dconv_fused\n"
         "import ai_based_frame_interpolation_torch.ops.conv_direct\n"
         "import ai_based_frame_interpolation_torch.models.core_t\n"
+        "import ai_based_frame_interpolation_torch.models.tower\n"
+        "import ai_based_frame_interpolation_torch.ops.native\n"
+        "import ai_based_frame_interpolation_torch.data.video\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "assert not bad, bad\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -50,7 +53,30 @@ def test_the_eval_path_loads_no_jax_opencv_pandas_or_plots():
     assert proc.returncode == 0, proc.stderr
 
 
+def test_the_video_stream_loads_no_opencv():
+    # only the _file entry points open video files (OpenCV); a stream of
+    # frames in host memory, the part that runs on the card, needs none
+    code = (
+        "import sys\n"
+        "import numpy as np\n"
+        "from ai_based_frame_interpolation_torch.config import ModelConfig\n"
+        "from ai_based_frame_interpolation_torch.infer.engine import (\n"
+        "    InterpolationEngine)\n"
+        "eng = InterpolationEngine.random_init(ModelConfig(base_width=4, "
+        "depth=2), device='cpu')\n"
+        "frames = [np.full((32, 32, 1), 9 * i, np.uint8) for i in range(4)]\n"
+        "out = list(eng.interpolate_video_frames(iter(frames), 2, 2))\n"
+        "assert len(out) == 7\n"
+        f"bad = [m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN + ('cv2',)!r}]\n"
+        "assert not bad, bad\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
 def test_opencv_is_imported_only_by_the_farneback_baseline():
+    # and by data/video.py's file reader and writer, through _opencv
     users = set()
     for path in sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]:
         tree = ast.parse(path.read_text(), str(path))
@@ -64,7 +90,8 @@ def test_opencv_is_imported_only_by_the_farneback_baseline():
                 where = [name for lo, hi, name in spans
                          if lo <= node.lineno <= hi] or ["<module>"]
                 users.add((path.name, where[-1]))
-    assert users == {("flow.py", "farneback_midpoint")}
+    assert users == {("flow.py", "farneback_midpoint"),
+                     ("video.py", "_opencv")}
 
 
 def _imported_roots(path):

@@ -101,7 +101,8 @@ def test_backward_warp_reads_x_at_the_source_row():
 @pytest.mark.parametrize("impl", ["gather4", "patch", "pyramid"])
 def test_other_warps_are_not_ported(impl):
     img = torch.zeros(1, 4, 4, 1)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 8"):
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP Queue A, the remaining model options"):
         backward_warp(img, torch.zeros(1, 4, 4, 2), impl=impl)
 
 
