@@ -1,8 +1,8 @@
 """Configuration dataclasses of the PyTorch port.
 
 The port keeps its own copy of the JAX package's ``ModelConfig``,
-``ServeConfig`` and ``VideoConfig`` with the same field names and
-defaults, so one ``model_config.json`` means the same model on both
+``LossConfig``, ``TrainConfig``, ``DataConfig``, ``ServeConfig`` and
+``VideoConfig`` with the same field names and defaults, so one ``model_config.json`` means the same model on both
 sides. The comments on
 each field say what it selects; the JAX package's ``config.py`` holds the
 measurements behind the defaults.
@@ -11,7 +11,7 @@ measurements behind the defaults.
 from __future__ import annotations
 
 import dataclasses
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Optional
 
 
@@ -67,6 +67,71 @@ class ModelConfig:
     @property
     def pad_multiple(self) -> int:
         return max(self.space_to_depth, self.flow_scale) * 2 ** self.depth
+
+
+@dataclass(frozen=True)
+class LossConfig:
+    """Training loss: ``mse_weight * MSE + ssim_weight * (1 - SSIM)``
+    (11x11 Gaussian SSIM, sigma 1.5; reference ``model/train.py:18-87``),
+    plus the optional terms below, each 0 = off and train-time only (the
+    validation loss stays the plain combined loss)."""
+
+    mse_weight: float = 0.5
+    ssim_weight: float = 0.5
+    ssim_window: int = 11
+    ssim_sigma: float = 1.5
+    # flow family: edge-aware first-order smoothness of the motion field
+    flow_smooth_weight: float = 0.0
+    flow_smooth_edge: float = 10.0
+    # flow family: L1 between each frame and its full warp from the other
+    # frame (the field grounded at both endpoints)
+    flow_photo_weight: float = 0.0
+    # any family: soft census distance between prediction and ground truth
+    # (ops/census.py)
+    census_weight: float = 0.0
+    census_window: int = 7
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """Training hyper-parameters (reference ``model/train.py:153-316``)."""
+
+    epochs: int = 100
+    batch_size: int = 8
+    learning_rate: float = 1e-4
+    val_split: float = 0.2
+    # ReduceLROnPlateau(factor=0.5, patience=10), reference train.py:163-165
+    plateau_factor: float = 0.5
+    plateau_patience: int = 10
+    seed: int = 0
+    # EMA of the weights (0 = off); when on, validation scores and the
+    # export holds the EMA weights
+    ema_decay: float = 0.0
+    # flips and the temporal swap of the input frames (data/loader.py)
+    augment: bool = False
+    # sequential microbatches per optimizer step (1 = off); batch_size must
+    # divide evenly
+    grad_accum: int = 1
+    # epochs between "latest" (resume point) checkpoints; "best" always
+    # saves on improvement
+    save_every: int = 1
+    loss: LossConfig = field(default_factory=LossConfig)
+    checkpoint_dir: str = "checkpoints"
+    resume: bool = False
+    log_every: int = 10
+    nan_guard: bool = True
+
+
+@dataclass(frozen=True)
+class DataConfig:
+    """Triplet dataset layout (reference ``model/train.py:89-151``)."""
+
+    data_dir: str = "data/train"
+    height: int = 256
+    width: int = 256
+    prefetch: int = 2            # batches decoded ahead of the trainer
+    num_workers: int = 4         # host decode threads
+    shuffle_buffer: int = 2048
 
 
 @dataclass(frozen=True)

@@ -233,6 +233,36 @@ class InterpolationEngine:
                    core_impl=core_impl)
 
     @classmethod
+    def from_checkpoint(cls, path: str, cfg: Optional[ModelConfig] = None,
+                        compute_dtype=torch.bfloat16, fold: bool = True,
+                        device=None, core_impl: str = "xla"
+                        ) -> "InterpolationEngine":
+        """Engine over an inference export of the port's trainer
+        (``train/checkpoint.py:save_variables``: ``variables.pt`` and
+        ``model_config.json``), folded and packed as ``__init__`` does;
+        ``cfg`` overrides the export's config. The reference's ``.pth``
+        (and a bare ``.pt``) raise: their import waits for ROADMAP Queue
+        A, weight interchange."""
+        import os
+
+        from ..train.checkpoint import load_variables
+
+        if path.endswith((".pth", ".pt")):
+            raise NotImplementedError(
+                f"{path}: the reference's .pth import is not ported yet "
+                "(ROADMAP Queue A, weight interchange); pass a directory "
+                "written by train.checkpoint.save_variables")
+        if not (os.path.exists(os.path.join(path, "variables.pt")) or
+                os.path.exists(os.path.join(path, "model_config.json"))):
+            raise FileNotFoundError(
+                f"no checkpoint at {path} (expected a directory with "
+                "variables.pt, written by save_variables)")
+        variables, loaded_cfg = load_variables(path)
+        cfg = cfg or loaded_cfg or ModelConfig()
+        return cls(build_model(cfg, compute_dtype), variables, compute_dtype,
+                   fold=fold, device=device, core_impl=core_impl)
+
+    @classmethod
     def from_flax_variables(cls, variables: Mapping, cfg: ModelConfig,
                             compute_dtype=torch.bfloat16, fold: bool = True,
                             device=None, core_impl: str = "xla"

@@ -52,11 +52,12 @@ class FrameEncoder(nn.Module):
             setattr(self, f"down{i}",
                     DoubleConv(widths[i - 1], widths[i], folded=folded))
 
-    def forward(self, x: torch.Tensor, cdt) -> List[torch.Tensor]:
-        feats = [self.inc(x, cdt)]
+    def forward(self, x: torch.Tensor, cdt, train: bool = False
+                ) -> List[torch.Tensor]:
+        feats = [self.inc(x, cdt, train)]
         for i in range(1, self.depth + 1):
             feats.append(getattr(self, f"down{i}")(F.max_pool2d(feats[-1], 2),
-                                                   cdt))
+                                                   cdt, train))
         return feats
 
 
@@ -94,7 +95,8 @@ class FusionDecoder(nn.Module):
         self.outc = nn.Conv2d(y_ch, out_channels, 1)
 
     def forward(self, feats1: List[torch.Tensor], feats2: List[torch.Tensor],
-                t: Optional[torch.Tensor], cdt) -> torch.Tensor:
+                t: Optional[torch.Tensor], cdt, train: bool = False
+                ) -> torch.Tensor:
         fused = [torch.cat([a, b], 1) for a, b in zip(feats1, feats2)]
         if self.slim:
             fused = [F.relu(conv(f, getattr(self, f"proj{j}"), cdt))
@@ -115,7 +117,7 @@ class FusionDecoder(nn.Module):
             if dh or dw:
                 y = F.pad(y, (dw // 2, dw - dw // 2, dh // 2, dh - dh // 2))
             y = getattr(self, f"up{i}")(torch.cat([skip, y.to(skip.dtype)], 1),
-                                        cdt)
+                                        cdt, train)
         return conv(y, self.outc, torch.float32)
 
 
@@ -148,29 +150,34 @@ class TowerInterpolator(RefineHead, nn.Module):
         self.head_names = ("refine1", "refine2", "refine_out")
         self.packed_head: Optional[dict] = None
 
-    def encode(self, frame: torch.Tensor) -> List[torch.Tensor]:
+    def encode(self, frame: torch.Tensor, train: bool = False
+               ) -> List[torch.Tensor]:
         """One frame batch's feature pyramid, in the compute dtype."""
         cdt = self.compute_dtype
         x = space_to_depth(frame, self.cfg.space_to_depth).to(cdt)
-        return self.encoder(x, cdt)
+        return self.encoder(x, cdt, train)
 
     def decode(self, feats1: List[torch.Tensor], feats2: List[torch.Tensor],
                f1: torch.Tensor, f2: torch.Tensor,
-               t: Optional[torch.Tensor] = None) -> torch.Tensor:
+               t: Optional[torch.Tensor] = None, train: bool = False
+               ) -> torch.Tensor:
         """The prediction from two pyramids and their frames (the residual
-        base and the head's planes)."""
+        base and the head's planes); ``train`` as in ``models/unet.py``."""
         cfg = self.cfg
         r = cfg.space_to_depth
-        y = self.decoder(feats1, feats2, t, self.compute_dtype)
+        y = self.decoder(feats1, feats2, t, self.compute_dtype, train)
         if cfg.residual:
             y = y + 0.5 * (space_to_depth(f1, r) +
                            space_to_depth(f2, r)).to(y.dtype)
         if self.has_head:
             g = cfg.refine_factor
-            return self.head(y, space_to_depth(f1, g), space_to_depth(f2, g))
+            return self.head(y, space_to_depth(f1, g), space_to_depth(f2, g),
+                             train)
         return depth_to_space(y, r)
 
     def forward(self, frame1: torch.Tensor, frame2: torch.Tensor,
-                t: Optional[torch.Tensor] = None) -> torch.Tensor:
-        return self.decode(self.encode(frame1), self.encode(frame2),
-                           frame1, frame2, t)
+                t: Optional[torch.Tensor] = None, train: bool = False
+                ) -> torch.Tensor:
+        return self.decode(self.encode(frame1, train),
+                           self.encode(frame2, train), frame1, frame2, t,
+                           train)

@@ -12,6 +12,14 @@ result rounds to the compute dtype before and after the bias. BatchNorm
 (unfolded variant) runs in f32, ReLU then casts back. The 1x1 ``outc`` and
 the refinement head's ``refine_out`` are f32, and so is the residual add.
 
+Every ``forward`` takes ``train``. ``train=False`` (inference) normalizes
+with the running statistics and runs the head through ``refine_head``
+(the CUDA kernel on the card). ``train=True`` is the training forward of
+the JAX package's ``train=True``: BatchNorm on the batch's statistics,
+which also updates the running ones (:func:`batch_norm`), and the head
+as the model's own convs under autograd (:meth:`RefineHead.head_train`),
+since no kernel has a backward.
+
 Importing this module turns TF32 off for cuDNN convolutions and CUDA
 matmuls: PyTorch runs f32 convolutions in TF32 by default, and the f32
 convs here (``outc``, ``refine_out``, the whole f32 engine) are meant to be
@@ -35,6 +43,8 @@ torch.backends.cudnn.allow_tf32 = False
 torch.backends.cuda.matmul.allow_tf32 = False
 
 BN_EPS = 1e-5
+# Flax's BatchNorm momentum: running = 0.9 * running + 0.1 * batch
+BN_MOMENTUM = 0.9
 
 
 def space_to_depth(x: torch.Tensor, r: int) -> torch.Tensor:
@@ -67,6 +77,31 @@ def conv(x: torch.Tensor, m: nn.Conv2d, dtype) -> torch.Tensor:
     return y
 
 
+def batch_norm(x: torch.Tensor, bn: nn.BatchNorm2d,
+               train: bool = False) -> torch.Tensor:
+    """``bn`` applied to NCHW ``x`` in f32, as Flax's ``BatchNorm(dtype=f32,
+    momentum=0.9)`` applies it. Inference: the running statistics. With
+    ``train`` the batch's mean and biased variance over (N, H, W), computed
+    as Flax computes them (``E[x^2] - E[x]^2``, clipped at 0) and
+    differentiable; the running statistics then move by Flax's rule, in
+    place, with the biased variance (``F.batch_norm(training=True)`` would
+    take the unbiased one)."""
+    x = x.float()
+    if not train:
+        return F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight,
+                            bn.bias, False, 0.0, bn.eps)
+    mean = torch.mean(x, (0, 2, 3))
+    var = torch.clamp(torch.mean(x * x, (0, 2, 3)) - mean * mean, min=0.0)
+    with torch.no_grad():
+        bn.running_mean.copy_(BN_MOMENTUM * bn.running_mean
+                              + (1 - BN_MOMENTUM) * mean)
+        bn.running_var.copy_(BN_MOMENTUM * bn.running_var
+                             + (1 - BN_MOMENTUM) * var)
+    mul = torch.rsqrt(var + bn.eps) * bn.weight
+    return (x - mean.view(1, -1, 1, 1)) * mul.view(1, -1, 1, 1) \
+        + bn.bias.view(1, -1, 1, 1)
+
+
 class DoubleConv(nn.Module):
     """(3x3 conv -> BatchNorm -> ReLU) x 2; with ``folded`` the BatchNorm
     is pre-multiplied into each conv, which then has a bias."""
@@ -82,13 +117,15 @@ class DoubleConv(nn.Module):
             self.bn1 = nn.BatchNorm2d(mid, eps=BN_EPS)
             self.bn2 = nn.BatchNorm2d(out_ch, eps=BN_EPS)
 
-    def forward(self, x: torch.Tensor, cdt) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, cdt, train: bool = False
+                ) -> torch.Tensor:
+        if train and self.folded:
+            raise ValueError("folded BatchNorm is inference-only; train the "
+                             "unfolded model")
         for i in (1, 2):
             x = conv(x, getattr(self, f"conv{i}"), cdt)
             if not self.folded:
-                bn = getattr(self, f"bn{i}")
-                x = F.batch_norm(x.float(), bn.running_mean, bn.running_var,
-                                 bn.weight, bn.bias, False, 0.0, bn.eps)
+                x = batch_norm(x, getattr(self, f"bn{i}"), train)
             x = F.relu(x).to(cdt)
         return x
 
@@ -100,8 +137,9 @@ class Down(nn.Module):
         super().__init__()
         self.conv = DoubleConv(in_ch, out_ch, folded=folded)
 
-    def forward(self, x: torch.Tensor, cdt) -> torch.Tensor:
-        return self.conv(F.max_pool2d(x, 2), cdt)
+    def forward(self, x: torch.Tensor, cdt, train: bool = False
+                ) -> torch.Tensor:
+        return self.conv(F.max_pool2d(x, 2), cdt, train)
 
 
 class Up(nn.Module):
@@ -124,7 +162,8 @@ class Up(nn.Module):
             self.conv = DoubleConv(low_ch // 2 + skip_ch, out_ch,
                                    folded=folded)
 
-    def forward(self, x1: torch.Tensor, x2: torch.Tensor, cdt) -> torch.Tensor:
+    def forward(self, x1: torch.Tensor, x2: torch.Tensor, cdt,
+                train: bool = False) -> torch.Tensor:
         if not self.bilinear:
             x1 = F.conv_transpose2d(x1.to(cdt), self.up.weight.to(cdt),
                                     stride=2)
@@ -137,7 +176,7 @@ class Up(nn.Module):
         dw = x2.shape[-1] - x1.shape[-1]
         if dh or dw:
             x1 = F.pad(x1, (dw // 2, dw - dw // 2, dh // 2, dh - dh // 2))
-        return self.conv(torch.cat([x2, x1.to(x2.dtype)], 1), cdt)
+        return self.conv(torch.cat([x2, x1.to(x2.dtype)], 1), cdt, train)
 
 
 class UNet(nn.Module):
@@ -170,13 +209,14 @@ class UNet(nn.Module):
             y_ch = ch
         self.outc = nn.Conv2d(y_ch, out_channels, 1)
 
-    def forward(self, x: torch.Tensor, cdt) -> torch.Tensor:
-        skips = [self.inc(x.to(cdt), cdt)]
+    def forward(self, x: torch.Tensor, cdt, train: bool = False
+                ) -> torch.Tensor:
+        skips = [self.inc(x.to(cdt), cdt, train)]
         for i in range(1, self.depth + 1):
-            skips.append(getattr(self, f"down{i}")(skips[-1], cdt))
+            skips.append(getattr(self, f"down{i}")(skips[-1], cdt, train))
         y = skips[-1]
         for i in range(1, self.depth + 1):
-            y = getattr(self, f"up{i}")(y, skips[self.depth - i], cdt)
+            y = getattr(self, f"up{i}")(y, skips[self.depth - i], cdt, train)
         return conv(y, self.outc, torch.float32)
 
 
@@ -204,21 +244,40 @@ class RefineHead:
                     "bias": getattr(self, n).bias} for n in self.head_names}
 
     def head(self, y: torch.Tensor, p1: torch.Tensor,
-             p2: torch.Tensor) -> torch.Tensor:
+             p2: torch.Tensor, train: bool = False) -> torch.Tensor:
         """The head on the f32 prediction ``y`` in the stem's
         space-to-depth layout, with planes ``p1``, ``p2`` at the head's
         factor ``g = refine_factor`` (each family lays them out its own
         way; the frames themselves at g = 1): at g = 1 through
         :meth:`refine` (the main path's kernel on the card); at a coarser
         factor, which has no kernel (nor has it in the JAX package),
-        through the plain head."""
+        through the plain head. With ``train``: :meth:`head_train`."""
         r, g = self.cfg.space_to_depth, self.cfg.refine_factor
         yg = depth_to_space(y, r // g)
+        if train:
+            return self.head_train(yg, p1, p2)
         if g == 1:
             return self.refine(yg, p1, p2)
         out = refine_head_reference(_nhwc(yg), (_nhwc(p1), _nhwc(p2)),
                                     self.head_params(), self.compute_dtype)
         return depth_to_space(out.permute(0, 3, 1, 2), g)
+
+    def head_train(self, yg: torch.Tensor, p1: torch.Tensor,
+                   p2: torch.Tensor) -> torch.Tensor:
+        """The training head, as the Flax model computes it under
+        ``train=True``: the model's own convs under autograd with
+        :func:`conv`'s rounding points, on the f32 prediction ``yg`` at the
+        head's factor; NCHW out in the compute dtype."""
+        cdt = self.compute_dtype
+        z = torch.cat([yg.to(cdt), p1.to(cdt), p2.to(cdt)], 1)
+        z = F.relu(conv(z, self.refine1, cdt))
+        if "refine2_dw" in self.head_names:
+            z = conv(z, self.refine2_dw, cdt)
+            z = F.relu(conv(z, self.refine2_pw, cdt))
+        else:
+            z = F.relu(conv(z, self.refine2, cdt))
+        delta = conv(z.float(), self.refine_out, torch.float32)
+        return depth_to_space((yg + delta).to(cdt), self.cfg.refine_factor)
 
     def refine(self, pred: torch.Tensor, frame1: torch.Tensor,
                frame2: torch.Tensor) -> torch.Tensor:
@@ -274,9 +333,11 @@ class FrameInterpolationUNet(RefineHead, nn.Module):
 
     def forward(self, frame1: torch.Tensor, frame2: torch.Tensor,
                 t: Optional[torch.Tensor] = None,
-                skip_refine: bool = False) -> torch.Tensor:
+                skip_refine: bool = False, train: bool = False
+                ) -> torch.Tensor:
         """``skip_refine=True`` returns the f32 pre-refine prediction at full
-        resolution, for a caller that applies the head itself."""
+        resolution, for a caller that applies the head itself; ``train``
+        as the module docstring says."""
         cfg, cdt = self.cfg, self.compute_dtype
         r = cfg.space_to_depth
         f1 = space_to_depth(frame1, r)
@@ -288,14 +349,14 @@ class FrameInterpolationUNet(RefineHead, nn.Module):
                 t = torch.full((b,), 0.5, dtype=x.dtype, device=x.device)
             tmap = t.to(x.dtype).view(b, 1, 1, 1).expand(b, 1, h, w)
             x = torch.cat([x, tmap], 1)
-        y = self.unet(x, cdt)
+        y = self.unet(x, cdt, train)
         if cfg.residual:
             y = y + 0.5 * (f1 + f2).to(y.dtype)
         if not self.has_head or skip_refine:
             return depth_to_space(y, r)
         g = cfg.refine_factor
         return self.head(y, depth_to_space(f1, r // g),
-                         depth_to_space(f2, r // g))
+                         depth_to_space(f2, r // g), train)
 
 
 def count_parameters(model: nn.Module) -> int:

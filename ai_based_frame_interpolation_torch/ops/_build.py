@@ -20,6 +20,8 @@ import threading
 from pathlib import Path
 from typing import Dict, Iterable, Optional
 
+import torch
+
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_kernels"
@@ -32,6 +34,21 @@ _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 # the compiler's output of the builds this process ran, by source name
 build_logs: Dict[str, str] = {}
+
+
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise if autograd would record through a kernel: grad mode is on
+    and a tensor given (``None`` and non-tensors skipped) requires grad.
+    The port's CUDA kernels have no backward, so such a call would return
+    an output without a ``grad_fn`` and drop the gradient without a word;
+    a training forward computes with the plain modules instead."""
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: an input or weight requires grad, but the CUDA kernel "
+            "has no backward; the training forward must not reach it (run "
+            "the kernel under torch.no_grad() or on tensors that do not "
+            "require grad)")
 
 
 def _nvcc() -> str:

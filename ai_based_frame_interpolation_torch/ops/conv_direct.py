@@ -138,11 +138,14 @@ def conv_direct(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     """The conv: the plain version for CPU tensors, the CUDA kernel for
     CUDA tensors (which raises on what it does not take). Arguments as
     :func:`conv_direct_reference`. ``conv_direct.launches`` counts kernel
-    launches."""
+    launches. The kernel has no backward: for CUDA tensors it raises under
+    grad mode when an input or weight requires grad
+    (``_build.refuse_grad``); so does :func:`head_out_direct`."""
     if x.device.type == "cpu":
         return conv_direct_reference(x, w, b, low, relu, depthwise)
     args = (x, w, b) if low is None else (x, w, b, low)
     dev = _check_cuda("conv_direct", *args)
+    _build.refuse_grad("conv_direct", *args)
     dt = x.dtype
     bsz, h, wd, c0 = x.shape
     c1 = 0 if low is None else int(low.shape[-1])
@@ -186,6 +189,7 @@ def head_out_direct(z: torch.Tensor, w3: torch.Tensor, b3: torch.Tensor,
     if z.device.type == "cpu":
         return head_out_reference(z, w3, b3, pred)
     dev = _check_cuda("head_out_direct", z, w3, b3, pred)
+    _build.refuse_grad("head_out_direct", z, w3, b3, pred)
     width, c = int(z.shape[-1]), int(pred.shape[-1])
     if z.dtype not in _DTYPES or tuple(w3.shape) != (width, c) or \
             tuple(b3.shape) != (c,) or not 1 <= c <= 3 or \

@@ -250,10 +250,14 @@ def double_conv_fused(x: torch.Tensor, w1, b1, w2, b2,
     :func:`pack_dconv_weights` of the weights in ``compute_dtype``, which
     the kernels need (the plain version ignores it).
     ``double_conv_fused.launches`` counts the fused kernel's launches,
-    ``double_conv_fused.routes`` every launch it makes by route."""
+    ``double_conv_fused.routes`` every launch it makes by route. The
+    kernels have no backward: for CUDA tensors it raises under grad mode
+    when an input or weight requires grad (``_build.refuse_grad``)."""
     if x.device.type == "cpu":
         return double_conv_reference(x, w1, b1, w2, b2, compute_dtype)
     _check_device(x, "double_conv_fused")
+    _build.refuse_grad("double_conv_fused", x, w1, b1, w2, b2,
+                       *(packed or {}).values())
     return _launch(x, None, w1, b1, w2, b2, packed, compute_dtype, None,
                    double_conv_fused)
 
@@ -268,11 +272,13 @@ def up_double_conv_fused(skip: torch.Tensor, low: torch.Tensor, w1, b1, w2,
     :func:`pack_dconv_weights` with ``split`` the skip's channels, which
     the kernels need. ``up_double_conv_fused.launches`` counts the fused
     kernel's launches, ``up_double_conv_fused.routes`` every launch it makes
-    by route."""
+    by route. It refuses grad as :func:`double_conv_fused` does."""
     if skip.device.type == "cpu":
         return up_double_conv_reference(skip, low, w1, b1, w2, b2,
                                         compute_dtype)
     _check_device(skip, "up_double_conv_fused")
+    _build.refuse_grad("up_double_conv_fused", skip, low, w1, b1, w2, b2,
+                       *(packed or {}).values())
     return _launch(skip, low, w1, b1, w2, b2, packed, compute_dtype,
                    int(skip.shape[-1]), up_double_conv_fused)
 

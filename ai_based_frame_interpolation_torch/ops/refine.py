@@ -280,11 +280,16 @@ def refine_head(y_full: torch.Tensor, planes: Sequence[torch.Tensor],
     counts the fused kernel's launches; ``refine_head.routes`` counts every
     launch it makes, fused or direct, under ``"route/wWIDTH/dtype"``
     (``dwWIDTH`` for a depthwise head; the model's width, before padding),
-    e.g. ``"w64/w32/bfloat16"``."""
+    e.g. ``"w64/w32/bfloat16"``. The kernels have no backward: for CUDA
+    tensors it raises under grad mode when any input or weight requires
+    grad (``_build.refuse_grad``)."""
     if y_full.device.type == "cpu":
         return refine_head_reference(y_full, planes, params, compute_dtype)
     if y_full.device.type != "cuda":
         raise ValueError(f"refine_head: unsupported device {y_full.device}")
+    _build.refuse_grad("refine_head", y_full, *planes,
+                       *(t for p in params.values() for t in p.values()),
+                       *(packed or {}).values())
     b, h, w, c = y_full.shape
     nplanes = (1 + len(planes)) * c
     width = int(params["refine1"]["weight"].shape[0])

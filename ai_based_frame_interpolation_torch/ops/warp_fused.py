@@ -97,12 +97,15 @@ def sample_fused(f1: torch.Tensor, f2: torch.Tensor, flow: torch.Tensor,
     mask   : [B,H,W,1] f32 blend weight toward the frame1 candidate
     t      : [B] f32 sample times
     returns: ``(out, g0, g1)``, each [B,H,W,C] f32, contiguous
-    ``sample_fused.launches`` counts kernel launches.
+    ``sample_fused.launches`` counts kernel launches. The kernel has no
+    backward: for CUDA tensors it raises under grad mode when an input
+    requires grad (``_build.refuse_grad``).
     """
     if f1.device.type == "cpu":
         return sample_fused_reference(f1, f2, flow, mask, t, max_flow)
     if f1.device.type != "cuda":
         raise ValueError(f"sample_fused: unsupported device {f1.device}")
+    _build.refuse_grad("sample_fused", f1, f2, flow, mask, t)
     b, h, w, c = f1.shape
     dev = f1.device
     if c not in (1, 3) or not (2 <= h <= 2 ** 22 and 2 <= w <= 2 ** 22):

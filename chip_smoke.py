@@ -90,12 +90,37 @@ Drives the port only (it imports nothing of JAX or of the JAX package):
    (host clock over the whole generator: output fps), once with its host
    steps timed, and once under torch.profiler (the device's busy share),
    beside the bare pair functions at b8 (the U-Net 2x's from phase 5),
-   printed after phase 5 with the ratio.
+   printed after phase 5 with the ratio;
+8. drives the training path (``train/loop.py``) on a scene tree it writes
+   (``write_scene_tree``: 6 gray 256x256 clips of 16 frames, 84 triplets,
+   split 67 train / 17 val): the full-width production U-Net (bf16
+   compute, f32 weights, batch 8, random weights from a seed) takes five
+   ``train_step``s on one batch (every parameter's gradient finite and
+   somewhere non-zero after the first, the loss lower after the fifth, no
+   kernel launched: every count 0); every kernel wrapper on the card
+   raises for grad-requiring inputs or weights; ``train_model`` runs 2
+   epochs with EMA, validation and checkpoints, and its validation phases
+   launch the w64 head and the SSIM kernel once per val batch and nothing
+   else (counted); the validation predictions are held within 1 LSB of
+   the same unfolded model composed with the plain head on the current
+   EMA weights, and their SSIM within ``SSIM_BOUND`` of the plain metric;
+   ``latest`` restores into a fresh state bit for bit (parameters,
+   buffers, EMA, Adam's state, step) and the next step's loss agrees
+   within 1e-3 relative; ``best``'s EMA export (``save_variables``) serves
+   through ``InterpolationEngine.from_checkpoint`` within 1 LSB of the
+   plain composition on the w64 head kernel; the flow production config
+   takes two steps with the smoothness, photometric and census losses on
+   (gradients reach every weight, no kernel) and one validation (one
+   sampler, one w16 head and one SSIM launch). Then it times a warm
+   ``train_step`` of each and the U-Net's ``eval_step`` (CUDA events), the
+   peak device memory of the U-Net's steps and the device's busy share of
+   one profiled step, printed on a ``train`` line beside the card's name
+   and power limit.
 
 Besides each kernel's launch counter, the wrappers that pick a route
 (``refine_head``, ``double_conv_fused``, ``up_double_conv_fused``) count
 their launches under it (``.routes``); the kernels line reads those counts
-over the main-path runs of phases 3, 4, 6 and 7.
+over the main-path runs of phases 3, 4, 6, 7 and 8.
 
 Any failure raises and exits non-zero. It prints the kernel record as one
 JSON line before the last, and as the last line
@@ -107,6 +132,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import dataclasses
 import json
 import os
 import re
@@ -1342,10 +1368,10 @@ def eval_timers(harness, engine, split):
         del engine.interpolate_batch
 
 
-def device_busy_ms(fn):
-    """(host ms, device busy ms) of one call of ``fn`` under torch.profiler:
-    the device time of every kernel and copy; None if the profiler
-    recorded no device time."""
+def profile_call(fn, top: int = 6) -> dict:
+    """One call of ``fn`` under torch.profiler: its wall ms, the device's
+    busy ms (kernels and copies; None if none was recorded), the device
+    kernels it ran, and the host ops with the most self CPU time."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1354,12 +1380,29 @@ def device_busy_ms(fn):
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    busy_us = sum(getattr(ev, "self_device_time_total",
-                          getattr(ev, "self_cuda_time_total", 0))
-                  for ev in prof.key_averages()
-                  if ev.device_type == torch.autograd.DeviceType.CUDA)
-    return wall_ms, (busy_us / 1e3 if busy_us > 0 else None)
+        wall = (time.perf_counter() - t0) * 1e3
+    evs = prof.key_averages()
+    dev = [ev for ev in evs
+           if ev.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(getattr(ev, "self_device_time_total",
+                       getattr(ev, "self_cuda_time_total", 0))
+               for ev in dev) / 1e3
+    host = sorted((ev for ev in evs
+                   if ev.device_type == torch.autograd.DeviceType.CPU),
+                  key=lambda ev: -ev.self_cpu_time_total)[:top]
+    return {"profiled_ms": wall, "device_busy_ms": busy or None,
+            "device_busy_share": busy / wall if busy else None,
+            "device_kernels": sum(ev.count for ev in dev),
+            "host_ops_self_ms": {ev.key: [ev.self_cpu_time_total / 1e3,
+                                          ev.count] for ev in host}}
+
+
+def device_busy_ms(fn):
+    """(host ms, device busy ms) of one call of ``fn`` under torch.profiler:
+    the device time of every kernel and copy; None if the profiler
+    recorded no device time."""
+    p = profile_call(fn)
+    return p["profiled_ms"], p["device_busy_ms"]
 
 
 def kernel_device_ms(fn, names, iters: int, parts=None):
@@ -2047,6 +2090,317 @@ def time_sampler(smi, b=1, max_flow=16) -> dict:
             "flops": flops, "bytes": byts}
 
 
+TRAIN_CLIPS = 6               # of 16 frames: 84 triplets, 67 train / 17 val
+TRAIN_HW = 256                # DataConfig's default, the reference's size
+TRAIN_BATCH = 8
+TRAIN_TIMED_STEPS = 10
+# the flow losses on, as the JAX CLI's --flow-smooth/--flow-photo/--census
+FLOW_TRAIN_LOSS = dict(flow_smooth_weight=0.01, flow_photo_weight=0.1,
+                       census_weight=0.1)
+
+
+def train_model_of(kw, seed):
+    """A model of config ``kw`` (unfolded BatchNorm, bf16 compute, f32
+    weights, as the JAX CLI's ``cmd_train`` builds it) with Flax's default
+    init drawn from ``seed``."""
+    from ai_based_frame_interpolation_torch.config import ModelConfig
+    from ai_based_frame_interpolation_torch.infer.engine import _init_weights
+    from ai_based_frame_interpolation_torch.models import build_model
+
+    model = build_model(ModelConfig(**kw))
+    _init_weights(model, torch.Generator().manual_seed(seed))
+    return model
+
+
+def check_grads(model, label) -> None:
+    """Every parameter's gradient finite and somewhere non-zero."""
+    bad = [n for n, p in model.named_parameters()
+           if p.grad is None or not bool(torch.isfinite(p.grad).all())
+           or not bool((p.grad != 0).any())]
+    assert not bad, f"{label}: gradients missing, non-finite or zero: {bad}"
+
+
+def check_wrapper_guard(model) -> None:
+    """Every kernel wrapper refuses grad-requiring inputs on the card: the
+    head with the model's own weights, the sampler with a field that
+    requires grad, the core and direct-conv wrappers with weights that
+    do."""
+    from ai_based_frame_interpolation_torch.ops.conv_direct import (
+        conv_direct, head_out_direct)
+    from ai_based_frame_interpolation_torch.ops.dconv_fused import (
+        double_conv_fused, up_double_conv_fused)
+    from ai_based_frame_interpolation_torch.ops.refine import refine_head
+    from ai_based_frame_interpolation_torch.ops.warp_fused import (
+        sample_fused)
+
+    def cuda(*shape, grad=False):
+        return torch.zeros(shape, device="cuda", requires_grad=grad)
+
+    y, x = cuda(1, 64, 64, 1), cuda(1, 64, 64, 8)
+    w, b = cuda(8, 8, 3, 3, grad=True), cuda(8)
+    calls = {
+        "refine_head": lambda: refine_head(y, (y, y), model.head_params()),
+        "sample_fused": lambda: sample_fused(
+            y, y, cuda(1, 64, 64, 2, grad=True), cuda(1, 64, 64, 1),
+            cuda(1)),
+        "double_conv_fused": lambda: double_conv_fused(x, w, b, w, b),
+        "up_double_conv_fused": lambda: up_double_conv_fused(
+            x, cuda(1, 32, 32, 8), w, b, w, b),
+        "conv_direct": lambda: conv_direct(x, cuda(9, 8, 8, grad=True), b),
+        "head_out_direct": lambda: head_out_direct(x, cuda(8, 1, grad=True),
+                                                   cuda(1), y)}
+    for name, call in calls.items():
+        try:
+            call()
+        except RuntimeError as e:
+            assert name in str(e) and "no backward" in str(e), e
+        else:
+            raise AssertionError(f"{name} ran under grad on grad-requiring "
+                                 "inputs")
+    print(f"train: {', '.join(calls)} refuse grad-requiring inputs on the "
+          "card", flush=True)
+
+
+def check_validation(state, val_batches) -> dict:
+    """The validation forward (the scored copy ``eval_step`` runs, its head
+    packed once from the EMA weights) against the same unfolded model
+    composed with the plain head on the current EMA weights, and the SSIM
+    kernel against the plain metric on the same uint8 predictions."""
+    import copy
+
+    from ai_based_frame_interpolation_torch.ops.image import (
+        denormalize_to_uint8, normalize_uint8)
+    from ai_based_frame_interpolation_torch.ops.refine import (
+        refine_head_reference)
+    from ai_based_frame_interpolation_torch.ops.ssim import ssim_eval
+    from ai_based_frame_interpolation_torch.ops.ssim_fused import (
+        ssim_eval_auto)
+    from ai_based_frame_interpolation_torch.train.loop import _scored_model
+
+    scored = _scored_model(state, use_ema=True)
+    plain = copy.deepcopy(state.model).requires_grad_(False)
+    nchw = lambda x: normalize_uint8(x).permute(0, 3, 1, 2)  # noqa: E731
+    nhwc = lambda x: x.permute(0, 2, 3, 1)  # noqa: E731
+    du, ds = 0, 0.0
+    with torch.no_grad():
+        for name, p in plain.named_parameters():
+            p.copy_(state.ema_params[name])
+        for vb in val_batches:
+            x0, x1 = nchw(vb["f0"]), nchw(vb["f1"])
+            got = denormalize_to_uint8(nhwc(scored(x0, x1)))
+            y = plain(x0, x1, skip_refine=True)
+            want = denormalize_to_uint8(refine_head_reference(
+                nhwc(y), (nhwc(x0), nhwc(x1)), plain.head_params(),
+                plain.compute_dtype))
+            du = max(du, int((got.int() - want.int()).abs().max()))
+            ds = max(ds, float((ssim_eval_auto(got, vb["gt"])
+                                - ssim_eval(got, vb["gt"])).abs().max()))
+    print(f"train: validation predictions vs the plain head on the EMA "
+          f"weights: max uint8 diff {du}; SSIM kernel vs plain {ds:.3g}",
+          flush=True)
+    assert du <= 1 and ds <= SSIM_BOUND
+    return {"max_uint8_diff_vs_plain": du, "ssim_max_abs_err": ds}
+
+
+def check_resume(state, ckpt, tcfg, batch) -> dict:
+    """``latest`` restored into a fresh state equals ``state`` bit for bit;
+    the next step's loss on both within 1e-3 relative."""
+    from ai_based_frame_interpolation_torch.train.loop import (
+        create_train_state, train_step)
+
+    fresh = create_train_state(train_model_of(PROD, 2), None, tcfg)
+    fresh, epoch, _ = ckpt.restore(fresh, which="latest")
+    assert epoch == tcfg.epochs and fresh.step == state.step
+    want, got = state.model.state_dict(), fresh.model.state_dict()
+    assert all(torch.equal(want[k], got[k]) for k in want)
+    assert all(torch.equal(state.ema_params[k], fresh.ema_params[k])
+               for k in state.ema_params)
+    for p, q in zip(state.model.parameters(), fresh.model.parameters()):
+        a, b = state.tx.state[p], fresh.tx.state[q]
+        assert all(torch.equal(a[k], b[k]) for k in
+                   ("step", "exp_avg", "exp_avg_sq")), "Adam state differs"
+    _, loss_a = train_step(state, batch, tcfg.loss, ema_decay=tcfg.ema_decay)
+    _, loss_b = train_step(fresh, batch, tcfg.loss, ema_decay=tcfg.ema_decay)
+    rel = abs(float(loss_b) - float(loss_a)) / abs(float(loss_a))
+    print(f"train: resumed from latest (step {fresh.step - 1}) bit for bit; "
+          f"next step's loss {float(loss_b):.6f} vs uninterrupted "
+          f"{float(loss_a):.6f} (relative {rel:.3g})", flush=True)
+    assert rel <= 1e-3
+    return {"step": fresh.step - 1, "next_loss_rel_diff": rel}
+
+
+def check_export(ckpt, tcfg, root, val_batch) -> dict:
+    """``best``'s EMA weights exported and served by ``from_checkpoint``:
+    256x256 midpoints on the w64 head within 1 LSB of the plain
+    composition on the exported weights."""
+    from ai_based_frame_interpolation_torch.config import ModelConfig
+    from ai_based_frame_interpolation_torch.infer.engine import (
+        InterpolationEngine)
+    from ai_based_frame_interpolation_torch.train.checkpoint import (
+        save_variables)
+    from ai_based_frame_interpolation_torch.train.loop import (
+        create_train_state)
+
+    best = create_train_state(train_model_of(PROD, 3), None, tcfg)
+    best, _, _ = ckpt.restore(best, which="best")
+    out_dir = os.path.join(root, "export")
+    save_variables(out_dir, best.variables(use_ema=True), ModelConfig(**PROD))
+    engine = InterpolationEngine.from_checkpoint(out_dir)
+    f1, f2 = (val_batch[k].cpu().numpy() for k in ("f0", "f1"))
+    reset_counts()
+    out = engine.interpolate_batch(f1, f2)
+    launches = main_counts()
+    assert launches == dict(NO_LAUNCHES, refine_head=1), launches
+    want = reference_midpoints(engine, f1, f2).cpu().numpy()
+    du = int(np.abs(out.astype(np.int16) - want.astype(np.int16)).max())
+    print(f"train: best's EMA export through from_checkpoint: {out.shape} "
+          f"max uint8 diff vs plain {du}; launches {launches}", flush=True)
+    assert out.shape == (len(f1), TRAIN_HW, TRAIN_HW, 1) and du <= 1
+    return {"max_uint8_diff_vs_plain": du, "launches": launches}
+
+
+def time_train(smi, state, batch, loss_cfg, ema_decay) -> dict:
+    """ms per warm train_step (CUDA events), samples/s, the peak device
+    memory of those steps and a profile of one step (``profile_call``)."""
+    from ai_based_frame_interpolation_torch.train.loop import train_step
+
+    def step():
+        train_step(state, batch, loss_cfg, ema_decay=ema_decay)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = cuda_ms(step, TRAIN_TIMED_STEPS)
+    peak = torch.cuda.max_memory_allocated()
+    return dict(profile_call(step), ms=ms,
+                samples_per_s=TRAIN_BATCH * 1e3 / ms, peak_bytes=peak,
+                card=smi)
+
+
+def train_path(record, smi) -> dict:
+    """Phase 8 (module docstring): the trainer on the card."""
+    from ai_based_frame_interpolation_torch.config import (
+        LossConfig, TrainConfig)
+    from ai_based_frame_interpolation_torch.data.loader import TripletLoader
+    from ai_based_frame_interpolation_torch.data.synthetic import (
+        write_scene_tree)
+    from ai_based_frame_interpolation_torch.data.triplets import (
+        scan_triplets, split_triplets)
+    from ai_based_frame_interpolation_torch.train.checkpoint import (
+        Checkpointer)
+    from ai_based_frame_interpolation_torch.train.loop import (
+        create_train_state, eval_step, train_model, train_step)
+
+    out = {}
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        write_scene_tree(os.path.join(root, "data"), num_videos=TRAIN_CLIPS,
+                         num_frames=16, height=TRAIN_HW, width=TRAIN_HW)
+        train_t, val_t = split_triplets(
+            scan_triplets(os.path.join(root, "data")), 0.2, seed=0)
+        out["data_s"] = time.perf_counter() - t0
+        kw = dict(batch_size=TRAIN_BATCH, height=TRAIN_HW, width=TRAIN_HW,
+                  num_workers=4)
+        train_loader = TripletLoader(train_t, seed=1, **kw)
+        val_loader = TripletLoader(val_t, shuffle=False,
+                                   drop_remainder=False, **kw)
+        batches, val_batches = list(train_loader), list(val_loader)
+        print(f"train: {len(train_t)} train / {len(val_t)} val triplets "
+              f"({TRAIN_CLIPS} clips written in {out['data_s']:.2f} s); "
+              f"{len(batches)} train and {len(val_batches)} val batches",
+              flush=True)
+
+        # the U-Net production config: gradients, no kernel, the loss falls
+        tcfg = TrainConfig(epochs=2, batch_size=TRAIN_BATCH,
+                           learning_rate=1e-4, ema_decay=0.9)
+        state = create_train_state(train_model_of(PROD, 0), None, tcfg)
+        reset_counts()
+        losses = []
+        for k in range(5):
+            state, loss = train_step(state, batches[0], tcfg.loss,
+                                     ema_decay=tcfg.ema_decay)
+            if k == 0:
+                check_grads(state.model, "U-Net")
+            losses.append(float(loss))
+        launches = counts()
+        print(f"train: U-Net 5 steps on one batch: loss {losses[0]:.6f} -> "
+              f"{losses[-1]:.6f}; launches {launches}", flush=True)
+        assert launches == NO_LAUNCHES and not route_counts(), launches
+        assert losses[-1] < losses[0]
+        out["unet_losses_one_batch"] = losses
+        check_wrapper_guard(state.model)
+        out["unet_step"] = time_train(smi, state, batches[0], tcfg.loss,
+                                      tcfg.ema_decay)
+        out["unet_eval_step_ms"] = cuda_ms(
+            lambda: eval_step(state, val_batches[0], tcfg.loss, use_ema=True),
+            TRAIN_TIMED_STEPS)
+        del state
+
+        # train_model: 2 epochs, validation on the kernels, checkpoints
+        ckpt = Checkpointer(os.path.join(root, "ckpt"))
+        logs = []
+        reset_counts()
+        t0 = time.perf_counter()
+        state, hist = train_model(train_model_of(PROD, 1), None, train_loader,
+                                  val_loader, tcfg, checkpointer=ckpt,
+                                  log_fn=logs.append)
+        out["train_model_s"] = time.perf_counter() - t0
+        launches = main_counts()
+        n_val = tcfg.epochs * len(val_loader)
+        for line in logs:
+            print(f"train: {line}", flush=True)
+        print(f"train: train_model launches {launches} (validation: "
+              f"{n_val} val batches)", flush=True)
+        assert launches == dict(NO_LAUNCHES, refine_head=n_val,
+                                ssim_eval=n_val), launches
+        assert state.step == tcfg.epochs * len(train_loader)
+        out["train_model"] = {"history": dataclasses.asdict(hist),
+                              "launches": launches}
+        out["validation"] = check_validation(state, val_batches)
+        out["resume"] = check_resume(state, ckpt, tcfg, batches[1])
+        out["export"] = check_export(ckpt, tcfg, root, val_batches[0])
+        del state
+
+        # the flow production config with its losses on
+        fcfg = TrainConfig(batch_size=TRAIN_BATCH, learning_rate=1e-4,
+                           loss=LossConfig(**FLOW_TRAIN_LOSS))
+        state = create_train_state(train_model_of(FLOW_PROD, 4), None, fcfg)
+        reset_counts()
+        for k in range(2):
+            state, loss = train_step(state, batches[k], fcfg.loss)
+            check_grads(state.model, "flow")
+        launches = counts()
+        assert launches == NO_LAUNCHES and not route_counts(), launches
+        reset_counts()
+        m = eval_step(state, val_batches[0], fcfg.loss)
+        launches = main_counts()
+        print(f"train: flow 2 steps, loss {float(loss):.6f}; validation "
+              f"{ {k: round(float(v), 4) for k, v in m.items()} } launches "
+              f"{launches}", flush=True)
+        assert launches == dict(NO_LAUNCHES, refine_head=1, sample_fused=1,
+                                ssim_eval=1), launches
+        out["flow_validation_launches"] = launches
+        out["flow_step"] = time_train(smi, state, batches[0], fcfg.loss, 0.0)
+        del state
+    u, f = out["unet_step"], out["flow_step"]
+    share = lambda t: ("not recorded" if t["device_busy_share"] is None  # noqa: E731
+                       else f"{100 * t['device_busy_share']:.2f}%")
+    print(f"[{smi}] train (b{TRAIN_BATCH} {TRAIN_HW}x{TRAIN_HW} gray, bf16): "
+          f"U-Net production {u['ms']:.3f} ms/step, "
+          f"{u['samples_per_s']:.1f} samples/s, peak "
+          f"{u['peak_bytes'] / 2**30:.3f} GiB, busy {share(u)} of a profiled "
+          f"step; flow production {f['ms']:.3f} ms/step, "
+          f"{f['samples_per_s']:.1f} samples/s, peak "
+          f"{f['peak_bytes'] / 2**30:.3f} GiB, busy {share(f)}; U-Net "
+          f"eval_step {out['unet_eval_step_ms']:.3f} ms", flush=True)
+    for name, t in (("U-Net", u), ("flow", f)):
+        ops = ", ".join(f"{k} {v[0]:.2f} ms x{v[1]}"
+                        for k, v in t["host_ops_self_ms"].items())
+        print(f"[{smi}] train: {name} step profile: {t['device_kernels']} "
+              f"device kernels; host self time by op: {ops}", flush=True)
+    record["train"] = out
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -2072,6 +2426,9 @@ def main() -> int:
     flow, flow_launches = flow_path(record)    # 4.
     evals = eval_path(record, unet, flow)      # 6. (before 5 frees them)
     video, video_routes = video_path(record, unet, flow, smi)   # 7.
+    train = train_path(record, smi)            # 8.
+    val_launches = train["train_model"]["launches"]
+    flow_val = train["flow_validation_launches"]
 
     # 5. timings (CUDA events, after warm-up); the default U-Net route
     # before and after the option core
@@ -2158,20 +2515,25 @@ def main() -> int:
     for name, cu, replaces, launches, err, tm in (
             ("refine_head_w64", "refine_head.cu", "refine_fused.py:417",
              unet_launches["refine_head"]
-             + video_routes["refine_head w64/w64/bfloat16"],
+             + video_routes["refine_head w64/w64/bfloat16"]
+             + val_launches["refine_head"]
+             + train["export"]["launches"]["refine_head"],
              record["refine_head_w64_max_abs_err"],
              "refine_head_w64_1088x1920"),
             ("refine_head_w16", "refine_head.cu", "refine_fused.py:417",
              flow_launches["refine_head"]
-             + video_routes["refine_head w16/w16/bfloat16"],
+             + video_routes["refine_head w16/w16/bfloat16"]
+             + flow_val["refine_head"],
              record["refine_head_w16_max_abs_err"],
              "refine_head_w16_1088x1920"),
             ("sample_fused", "sample_fused.cu", "warp_fused.py:183",
              flow_launches["sample_fused"]
-             + video["flow_retime_2.5"]["launches"]["sample_fused"],
+             + video["flow_retime_2.5"]["launches"]["sample_fused"]
+             + flow_val["sample_fused"],
              record["sample_fused_max_abs_err"], "sample_fused_1088x1920"),
             ("ssim_eval_256", "ssim_eval.cu", "ssim_fused.py:63",
-             evals["unet_256"]["launches"]["ssim_eval"],
+             evals["unet_256"]["launches"]["ssim_eval"]
+             + val_launches["ssim_eval"] + flow_val["ssim_eval"],
              ssim_errs["8x256x256"], "ssim_eval_8x256x256"),
             ("ssim_eval_1080", "ssim_eval.cu", "ssim_fused.py:169",
              evals["unet_1080"]["launches"]["ssim_eval"],
