@@ -9,7 +9,7 @@ through the port's PNG encoder.
   sprites, a brightness ramp, flicker and noise), the same numpy code as
   JAX's with its two OpenCV calls ported as numpy functions that follow
   OpenCV's rules (:func:`resize_cubic`, :func:`warp_affine_linear`): the
-  card's machine has no OpenCV. The frames agree with JAX's within 1 LSB
+  port requires no OpenCV. The frames agree with JAX's within 1 LSB
   (``tests/test_torch_loader.py``).
 
 Trees go to disk in the reference's layout ``<root>/<video>/frame_XXX.png``

@@ -5,7 +5,8 @@ length; the async variants decode ahead and encode behind in a thread, so
 decode, device work and encode overlap. OpenCV (``cv2.VideoCapture``,
 ``cv2.VideoWriter`` with the mp4v codec) is the only backend, imported when
 a reader or writer opens a file: without it, opening one raises an
-``ImportError`` that names it. Nothing else of the port needs OpenCV.
+``ImportError`` that names it. Elsewhere the port uses OpenCV only for
+the Farneback baseline and for image formats other than PNG.
 """
 
 from __future__ import annotations

@@ -5,9 +5,11 @@ good / 20-25 acceptable / <20 poor, SSIM >0.95 / 0.90 / 0.80,
 ``evaluation.py:709-719,827-843``) and recommendations.
 
 The CSV is written with the ``csv`` module in the columns and row order
-that pandas writes; the card's machine has no pandas and no matplotlib, so
-the plots, the frame comparisons and ``generate_full_report`` wait for the
-CLI slice (ROADMAP Queue A, serving and the CLI).
+that pandas writes. The plots and the frame comparisons draw with
+matplotlib, imported inside the functions that draw: the card's machine
+has no matplotlib (and no pandas), so there :func:`save_plots`, and with it
+:func:`generate_full_report`, raise an ``ImportError``. The comparisons
+run the port's engine; their Farneback panel needs OpenCV.
 """
 
 from __future__ import annotations
@@ -16,7 +18,18 @@ import csv
 import json
 import math
 import os
-from typing import Optional
+from typing import List, Optional, Sequence
+
+import numpy as np
+
+# fixed categorical assignment: method -> hue (never cycled / reordered)
+METHOD_COLORS = {"unet": "#2a78d6", "linear": "#eb6834",
+                 "optical_flow": "#1baf7a"}
+_FALLBACK_COLORS = ["#eda100", "#e87ba4", "#008300", "#4a3aa7"]
+SURFACE = "#fcfcfb"
+TEXT_PRIMARY = "#0b0b0b"
+TEXT_SECONDARY = "#52514e"
+GRID = "#e4e3df"
 
 METHOD_LABELS = {"unet": "U-Net", "linear": "Linear blend",
                  "optical_flow": "Optical flow (Farneback)"}
@@ -32,6 +45,10 @@ def _band(value: float, bands) -> str:
         if value > thresh:
             return name
     return "poor"
+
+
+def _color(method: str, i: int) -> str:
+    return METHOD_COLORS.get(method, _FALLBACK_COLORS[i % len(_FALLBACK_COLORS)])
 
 
 def _label(method: str) -> str:
@@ -92,6 +109,102 @@ def save_csv_summary(results: dict, path: str) -> str:
     return path
 
 
+def _styled_axis(ax, ylabel: str):
+    ax.set_facecolor(SURFACE)
+    ax.grid(axis="y", color=GRID, linewidth=0.8, zorder=0)
+    ax.set_axisbelow(True)
+    for spine in ("top", "right"):
+        ax.spines[spine].set_visible(False)
+    for spine in ("left", "bottom"):
+        ax.spines[spine].set_color(GRID)
+    ax.tick_params(colors=TEXT_SECONDARY, labelsize=9)
+    ax.set_ylabel(ylabel, color=TEXT_SECONDARY, fontsize=10)
+
+
+def _bar_metric(ax, results: dict, metric: str, ylabel: str,
+                errorbars: bool = False):
+    methods = results["methods"]
+    mm = results["metrics_by_method"]
+    xs = np.arange(len(methods))
+    vals = [mm[m][metric]["avg"] for m in methods]
+    errs = [mm[m][metric]["std"] for m in methods] if errorbars else None
+    colors = [_color(m, i) for i, m in enumerate(methods)]
+    ax.bar(xs, vals, width=0.55, color=colors, zorder=2,
+           yerr=errs, capsize=4 if errorbars else 0,
+           error_kw={"ecolor": TEXT_SECONDARY, "elinewidth": 1.2},
+           edgecolor=SURFACE, linewidth=2)
+    for x, v in zip(xs, vals):
+        ax.annotate(f"{v:.2f}" if metric == "psnr" else f"{v:.3f}",
+                    (x, v), textcoords="offset points", xytext=(0, 4),
+                    ha="center", fontsize=9, color=TEXT_PRIMARY)
+    ax.set_xticks(xs)
+    ax.set_xticklabels([_label(m) for m in methods], color=TEXT_PRIMARY,
+                       fontsize=9)
+    _styled_axis(ax, ylabel)
+
+
+def save_plots(results: dict, out_dir: str) -> List[str]:
+    """The reference's four chart sets (``evaluation.py:558-643``)."""
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    os.makedirs(out_dir, exist_ok=True)
+    written = []
+
+    def fig_one(metric, ylabel, fname, errorbars=False):
+        fig, ax = plt.subplots(figsize=(6, 4), facecolor=SURFACE)
+        _bar_metric(ax, results, metric, ylabel, errorbars)
+        ax.set_title(f"Mean {ylabel} by method", color=TEXT_PRIMARY,
+                     fontsize=11, loc="left")
+        fig.tight_layout()
+        path = os.path.join(out_dir, fname)
+        fig.savefig(path, dpi=150, facecolor=SURFACE)
+        plt.close(fig)
+        written.append(path)
+
+    fig_one("psnr", "PSNR (dB)", "psnr_comparison.png")
+    fig_one("ssim", "SSIM", "ssim_comparison.png")
+    fig_one("psnr", "PSNR (dB)", "psnr_with_std.png", errorbars=True)
+
+    # combined: two panels, one metric per axis (never dual-axis)
+    fig, axes = plt.subplots(1, 2, figsize=(11, 4), facecolor=SURFACE)
+    _bar_metric(axes[0], results, "psnr", "PSNR (dB)")
+    _bar_metric(axes[1], results, "ssim", "SSIM")
+    fig.suptitle("Interpolation quality by method", color=TEXT_PRIMARY,
+                 fontsize=12, x=0.02, ha="left")
+    fig.tight_layout(rect=(0, 0, 1, 0.94))
+    path = os.path.join(out_dir, "combined_comparison.png")
+    fig.savefig(path, dpi=150, facecolor=SURFACE)
+    plt.close(fig)
+    written.append(path)
+
+    write_plots_readme(results, out_dir)
+    written.append(os.path.join(out_dir, "README.md"))
+    return written
+
+
+def write_plots_readme(results: dict, out_dir: str) -> str:
+    """Plots index (reference ``evaluation.py:655-734``)."""
+    mm = results["metrics_by_method"]
+    lines = ["# Evaluation plots", "",
+             "| File | Contents |", "|---|---|",
+             "| psnr_comparison.png | mean PSNR per method |",
+             "| ssim_comparison.png | mean SSIM per method |",
+             "| psnr_with_std.png | mean PSNR with std error bars |",
+             "| combined_comparison.png | PSNR + SSIM side by side |", "",
+             "## Numbers", "",
+             "| Method | PSNR (dB) | SSIM |", "|---|---|---|"]
+    for m in results["methods"]:
+        lines.append(f"| {_label(m)} | {mm[m]['psnr']['avg']:.2f} | "
+                     f"{mm[m]['ssim']['avg']:.4f} |")
+    path = os.path.join(out_dir, "README.md")
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return path
+
+
 def write_markdown_report(results: dict, path: str,
                           extra_notes: Optional[str] = None) -> str:
     """Rankings, quality bands, recommendations (``evaluation.py:736-899``)."""
@@ -146,3 +259,84 @@ def write_markdown_report(results: dict, path: str,
     with open(path, "w") as f:
         f.write("\n".join(lines) + "\n")
     return path
+
+
+def save_frame_comparisons(results: dict, engine, out_dir: str,
+                           height: int = 256, width: int = 256,
+                           which: Sequence[str] = ("best", "median", "worst")
+                           ) -> List[str]:
+    """Side-by-side (inputs | per-method predictions | GT) for triplets picked
+    by U-Net PSNR (reference ``evaluation.py:901-1066``)."""
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    from ..data.triplets import Triplet, load_triplet_arrays
+    from ..ops.flow import farneback_midpoint, linear_midpoint
+
+    ranked = sorted(results["results_by_method"]["unet"],
+                    key=lambda r: r["psnr"])
+    if not ranked:
+        return []
+    picks = {"worst": ranked[0], "median": ranked[len(ranked) // 2],
+             "best": ranked[-1]}
+    os.makedirs(out_dir, exist_ok=True)
+    grayscale = engine.cfg.channels == 1
+    written = []
+    for name in which:
+        r = picks[name]
+        # result records carry the actual filenames (harness.py), so any
+        # frame naming scheme works here
+        t = Triplet(video_dir=r["video_dir"], video_name=r["video_name"],
+                    triplet_id=r["triplet_id"],
+                    frame_t0=r.get("frame_t0",
+                                   f"frame_{r['triplet_id']:03d}.png"),
+                    frame_t1=r.get("frame_t1",
+                                   f"frame_{r['triplet_id'] + 2:03d}.png"),
+                    ground_truth=r.get("ground_truth",
+                                       f"frame_{r['triplet_id'] + 1:03d}.png"))
+        try:
+            f0, f1, gt = load_triplet_arrays(t, height, width, grayscale)
+        except Exception:
+            continue
+        panels = [("frame t", f0), ("frame t+2", f1),
+                  ("U-Net", engine.interpolate_pair(f0, f1)),
+                  ("linear", linear_midpoint(f0, f1)),
+                  ("optical flow", farneback_midpoint(f0, f1)),
+                  ("ground truth", gt)]
+        fig, axes = plt.subplots(1, len(panels), figsize=(3 * len(panels), 3.4),
+                                 facecolor=SURFACE)
+        for ax, (title, img) in zip(axes, panels):
+            ax.imshow(img[..., 0] if img.shape[-1] == 1 else img,
+                      cmap="gray" if img.shape[-1] == 1 else None,
+                      vmin=0, vmax=255)
+            ax.set_title(title, fontsize=9, color=TEXT_PRIMARY)
+            ax.axis("off")
+        fig.suptitle(f"{name} by U-Net PSNR ({r['psnr']:.2f} dB) — "
+                     f"{r['video_name']} #{r['triplet_id']}",
+                     color=TEXT_PRIMARY, fontsize=11)
+        fig.tight_layout()
+        path = os.path.join(out_dir, f"comparison_{name}.png")
+        fig.savefig(path, dpi=130, facecolor=SURFACE)
+        plt.close(fig)
+        written.append(path)
+    return written
+
+
+def generate_full_report(results: dict, out_dir: str, engine=None,
+                         height: int = 256, width: int = 256) -> dict:
+    """One call -> the whole artifact suite. Returns paths."""
+    os.makedirs(out_dir, exist_ok=True)
+    artifacts = {
+        "json": save_json(results, os.path.join(out_dir, "results.json")),
+        "csv": save_csv_summary(results, os.path.join(out_dir, "summary.csv")),
+        "plots": save_plots(results, os.path.join(out_dir, "plots")),
+        "report": write_markdown_report(
+            results, os.path.join(out_dir, "report.md")),
+    }
+    if engine is not None and "unet" in results["results_by_method"]:
+        artifacts["comparisons"] = save_frame_comparisons(
+            results, engine, os.path.join(out_dir, "comparisons"),
+            height, width)
+    return artifacts

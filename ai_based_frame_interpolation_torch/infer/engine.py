@@ -239,26 +239,27 @@ class InterpolationEngine:
                         ) -> "InterpolationEngine":
         """Engine over an inference export of the port's trainer
         (``train/checkpoint.py:save_variables``: ``variables.pt`` and
-        ``model_config.json``), folded and packed as ``__init__`` does;
-        ``cfg`` overrides the export's config. The reference's ``.pth``
-        (and a bare ``.pt``) raise: their import waits for ROADMAP Queue
-        A, weight interchange."""
+        ``model_config.json``) or a reference-format ``.pth`` (or ``.pt``;
+        ``train/checkpoint.py:import_pth``), folded and packed as
+        ``__init__`` does; ``cfg`` overrides the export's config. A
+        ``.pth`` without ``cfg`` implies the reference's config, with the
+        channels, width, depth and decoder its weights have
+        (``pth_config``)."""
         import os
 
-        from ..train.checkpoint import load_variables
+        from ..train.checkpoint import import_pth, load_variables, pth_config
 
         if path.endswith((".pth", ".pt")):
-            raise NotImplementedError(
-                f"{path}: the reference's .pth import is not ported yet "
-                "(ROADMAP Queue A, weight interchange); pass a directory "
-                "written by train.checkpoint.save_variables")
-        if not (os.path.exists(os.path.join(path, "variables.pt")) or
-                os.path.exists(os.path.join(path, "model_config.json"))):
+            variables = import_pth(path, cfg)
+            cfg = cfg or pth_config(variables)
+        elif (os.path.exists(os.path.join(path, "variables.pt")) or
+              os.path.exists(os.path.join(path, "model_config.json"))):
+            variables, loaded_cfg = load_variables(path)
+            cfg = cfg or loaded_cfg or ModelConfig()
+        else:
             raise FileNotFoundError(
-                f"no checkpoint at {path} (expected a directory with "
-                "variables.pt, written by save_variables)")
-        variables, loaded_cfg = load_variables(path)
-        cfg = cfg or loaded_cfg or ModelConfig()
+                f"no checkpoint at {path} (expected a .pth file or a "
+                "directory with variables.pt, written by save_variables)")
         return cls(build_model(cfg, compute_dtype), variables, compute_dtype,
                    fold=fold, device=device, core_impl=core_impl)
 

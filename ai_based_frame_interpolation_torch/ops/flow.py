@@ -1,9 +1,10 @@
 """The eval harness's host-side baselines (JAX ``ops/flow.py``): the
 linear blend, and OpenCV's Farneback flow with a half-step warp.
 
-``cv2`` is imported inside :func:`farneback_midpoint` only: the card's
-machine has no OpenCV, so the ``optical_flow`` method runs where OpenCV
-is installed and not on the card (ROADMAP Queue A, serving and the CLI).
+``cv2`` is imported inside :func:`farneback_midpoint` only: the
+``optical_flow`` method runs on the host where OpenCV is installed (a
+baseline on the card waits for ROADMAP Queue A, a Farneback baseline on
+the card); elsewhere it raises an ``ImportError`` that names OpenCV.
 """
 
 from __future__ import annotations
@@ -22,7 +23,12 @@ def farneback_midpoint(f1: np.ndarray, f2: np.ndarray) -> np.ndarray:
     ``x - 0.5*flow``, the correct sign (the reference's ``+`` moves content
     against the motion).
     """
-    import cv2
+    try:
+        import cv2
+    except ImportError as e:
+        raise ImportError("the optical_flow baseline runs OpenCV's Farneback "
+                          "flow (the cv2 module), which is not installed") \
+            from e
 
     f1 = np.asarray(f1)
     f2 = np.asarray(f2)

@@ -1,22 +1,26 @@
 """Normalize uint8 frames to [-1, 1] and back, and read and write image
 files (JAX ``ops/image.py``).
 
-The JAX package decodes with OpenCV; the card's machine has none, so the
-port reads and writes PNG through its own codec (``ops/png.py``) and
-resizes with the same half-pixel bilinear grid as ``cv2.resize(...,
-INTER_LINEAR)``, in f32 and then rounded (cv2 uses 11-bit fixed-point taps:
-the two agree within 1 LSB).
+The JAX package decodes with OpenCV, which the card's machine need not
+have, so the port reads and writes PNG through its own codec (``ops/png.py``) on every
+machine, and resizes with the same half-pixel bilinear grid as
+``cv2.resize(..., INTER_LINEAR)``, in f32 and then rounded (cv2 uses 11-bit
+fixed-point taps: the two agree within 1 LSB). The other formats the JAX
+package reads (JPEG, BMP, TIFF) go through OpenCV where it is installed
+(:func:`decode_image`).
 """
 
 from __future__ import annotations
 
 import os
+import struct
+import zlib
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
-from .png import decode_png, encode_png, to_gray, to_rgb
+from .png import SIGNATURE, decode_png, encode_png, to_gray, to_rgb
 from .resize import resize_bilinear
 
 
@@ -40,12 +44,42 @@ def denormalize_to_uint8(x: torch.Tensor) -> torch.Tensor:
     return torch.round(y).to(torch.uint8)
 
 
-def _check_png(path: str) -> None:
-    if os.path.splitext(path)[1].lower() != ".png":
-        raise NotImplementedError(
-            f"{path}: the port reads and writes PNG only; JPEG and BMP "
-            "decoding without OpenCV waits for ROADMAP Queue A, serving "
-            "and the CLI")
+# JPEG, BMP and little- and big-endian TIFF
+_OPENCV_MAGIC = (b"\xff\xd8\xff", b"BM", b"II*\x00", b"MM\x00*")
+
+
+def decode_image(data: bytes, grayscale: bool = True) -> np.ndarray:
+    """Encoded image bytes -> HWC uint8, C=1 gray as
+    ``cv2.IMREAD_GRAYSCALE`` reads it or C=3 RGB.
+
+    PNG goes through the port's codec on every machine. Other formats go to
+    ``cv2.imdecode`` where OpenCV is installed; where it is not, JPEG, BMP
+    and TIFF raise an ``ImportError`` that names it. Raises ``ValueError``
+    for bytes that are no image it can decode (where ``cv2.imdecode``
+    returns None).
+    """
+    if data[:8] == SIGNATURE:
+        try:
+            img = decode_png(data)
+        except (ValueError, struct.error, zlib.error) as e:
+            raise ValueError(f"could not decode image: {e}") from e
+        return to_gray(img) if grayscale else to_rgb(img)
+    try:
+        import cv2
+    except ImportError as e:
+        if not bytes(data[:4]).startswith(_OPENCV_MAGIC):
+            raise ValueError("could not decode image") from None
+        raise ImportError(
+            "JPEG, BMP and TIFF images are decoded through OpenCV (the cv2 "
+            "module), which is not installed; PNG needs none. A decoder "
+            "without OpenCV waits for ROADMAP Queue A, codecs without "
+            "OpenCV") from e
+    img = cv2.imdecode(np.frombuffer(data, np.uint8),
+                       cv2.IMREAD_GRAYSCALE if grayscale
+                       else cv2.IMREAD_COLOR)
+    if img is None:
+        raise ValueError("could not decode image")
+    return img[..., None] if img.ndim == 2 else img[..., ::-1].copy()
 
 
 def resize_uint8(img: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
@@ -59,23 +93,26 @@ def resize_uint8(img: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
 
 def load_image(path: str, grayscale: bool = True,
                size: Optional[Tuple[int, int]] = None) -> np.ndarray:
-    """Read a PNG as HWC uint8 (C=1 gray as ``cv2.IMREAD_GRAYSCALE`` reads
-    it, or C=3 RGB), resized to ``size`` (H, W) when given."""
-    _check_png(path)
+    """Read an image file as HWC uint8 (C=1 gray as
+    ``cv2.IMREAD_GRAYSCALE`` reads it, or C=3 RGB) through
+    :func:`decode_image`, resized to ``size`` (H, W) when given."""
     try:
         with open(path, "rb") as f:
             data = f.read()
     except OSError as e:
         raise FileNotFoundError(f"could not read image: {path}") from e
-    img = decode_png(data)
-    img = to_gray(img) if grayscale else to_rgb(img)
+    img = decode_image(data, grayscale)
     if size is not None and (img.shape[0], img.shape[1]) != tuple(size):
         img = resize_uint8(img, size)
     return img
 
 
 def save_image(path: str, img: np.ndarray) -> None:
-    """Write HWC uint8 (1 or 3 channels, RGB) as a PNG."""
-    _check_png(path)
+    """Write HWC uint8 (1 or 3 channels, RGB) as a PNG (the port writes
+    no other format)."""
+    if os.path.splitext(path)[1].lower() != ".png":
+        raise NotImplementedError(
+            f"{path}: the port writes PNG only; other formats wait for "
+            "ROADMAP Queue A, codecs without OpenCV")
     with open(path, "wb") as f:
         f.write(encode_png(np.asarray(img)))

@@ -1,4 +1,4 @@
-"""A PNG codec on numpy and ``zlib`` (the card's machine has no OpenCV).
+"""A PNG codec on numpy and ``zlib`` (the port requires no OpenCV).
 
 :func:`decode_png` reads 8-bit gray, gray+alpha, RGB and RGBA files,
 non-interlaced, with all five scanline filters; the unfiltering runs in

@@ -1,5 +1,5 @@
 """Continuous request batching over the port's engine (JAX package
-``serve/batcher.py``, same design and contract).
+``serve/batcher.py``, the same contract).
 
 - Arriving requests enqueue; the first becomes the dispatcher and takes
   every pending request with the same ``num_intermediate`` (bisection depth
@@ -10,12 +10,20 @@
 - Batches are padded up to a bucket size (1/2/4/8 by default) by repeating
   the last pair, so the engine sees a few batch shapes only.
 - ``window_ms`` adds an optional straggler wait before each dispatch.
+
+One difference: the leading request forms the group as in JAX's design,
+but the batched call runs on one thread of the batcher's own (started at
+the first request), and :meth:`DynamicBatcher.call` runs other device work
+there too. The HTTP server answers each connection on a new thread, and a
+thread's first PyTorch work on the card costs tens of milliseconds
+(``PERF.md``, PR 13: 65 ms against 8 ms for the same request).
 """
 
 from __future__ import annotations
 
 import math
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -54,6 +62,8 @@ class DynamicBatcher:
         self._cond = threading.Condition()
         self._pending: List[_Item] = []
         self._dispatching = False
+        # the one thread that reaches the card (module docstring)
+        self._device = ThreadPoolExecutor(1, thread_name_prefix="batcher")
         self.dispatches = 0
         self.batched_requests = 0
         self.max_seen_batch = 0
@@ -80,15 +90,29 @@ class DynamicBatcher:
         """Batching-aware midpoint (``num=1``)."""
         return self.generate_intermediate_frames(f1, f2, 1)[0]
 
+    def call(self, fn, *args):
+        """``fn(*args)`` on the batcher's device thread, between batched
+        calls (device work that is not a batched midpoint request)."""
+        return self._device.submit(fn, *args).result()
+
+    def close(self) -> None:
+        """Stop the device thread once its queued work is done; later
+        requests raise ``RuntimeError``."""
+        self._device.shutdown(wait=True)
+
     def _dispatch_locked(self, leader: _Item) -> None:
         """With the lock held and ``leader`` pending: become the
         dispatcher, run one batched call, publish the results."""
         self._dispatching = True
         if self.window_ms > 0:
             self._cond.wait(timeout=self.window_ms / 1e3)
+        # the oldest requests of the leader's num, which need not include
+        # the leader: with more than max_batch of them pending it waits for
+        # a later group (JAX's batcher returned here without dispatching,
+        # and every later leader did the same: a spin holding the lock)
         group = [it for it in self._pending
                  if it.num == leader.num][:self.max_batch]
-        if leader not in group:        # served by another dispatcher
+        if not group:                  # served during the straggler window
             self._dispatching = False
             self._cond.notify_all()
             return
@@ -96,7 +120,10 @@ class DynamicBatcher:
             self._pending.remove(it)
         self._cond.release()
         try:
-            self._run_batch(group)
+            self.call(self._run_batch, group)
+        except RuntimeError as e:        # closed: no device thread
+            for it in group:
+                it.error = e
         finally:
             self._cond.acquire()
             self._dispatching = False

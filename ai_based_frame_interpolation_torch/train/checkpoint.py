@@ -14,8 +14,14 @@ package's directory layout:
 
 A resume restores the optimizer's state too (the reference saves it but
 never reloads it). Each file is written to a temporary name and renamed,
-so a crash mid-save leaves the previous checkpoint whole. The reference's
-``.pth`` import and export wait for ROADMAP Queue A, weight interchange.
+so a crash mid-save leaves the previous checkpoint whole.
+
+The reference's ``.pth`` (its checkpoint dict, ``model/train.py:232-244``,
+or a bare state dict) maps onto the port's U-Net state by name alone:
+:func:`import_pth` / :func:`import_state_dict` read it, and
+:func:`export_state_dict` / :func:`export_pth` write the dict the JAX
+package's ``export_pth`` writes. PyTorch's conv and transposed-conv
+layouts are the port's own, so no array is transposed or flipped.
 """
 
 from __future__ import annotations
@@ -23,8 +29,9 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
-from typing import Any, Dict, Mapping, Optional, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..config import ModelConfig
@@ -157,3 +164,117 @@ def load_variables(directory: str,
                            "match the template")
         variables = {k: v.to(template[k]) for k, v in variables.items()}
     return variables, cfg
+
+
+# ---------------------------------------------------------------------------
+# The reference's .pth (JAX ``train/checkpoint.py:167-310``)
+# ---------------------------------------------------------------------------
+
+# a DoubleConv's layers: the port's name, then the index in the
+# reference's Sequential(conv, bn, relu, conv, bn, relu)
+_DOUBLE_CONV = (("conv1", 0), ("conv2", 3), ("bn1", 1), ("bn2", 4))
+_BN_LEAVES = ("weight", "bias", "running_mean", "running_var")
+
+
+def _pth_keys(depth: int, bilinear: bool) -> List[Tuple[str, str]]:
+    """(port key, reference key) of every array of the reference U-Net, in
+    the order JAX's ``export_state_dict`` writes them."""
+    blocks = [("unet.inc", "unet.inc.double_conv")]
+    for k in range(1, depth + 1):
+        blocks += [(f"unet.down{k}.conv",
+                    f"unet.down{k}.maxpool_conv.1.double_conv"),
+                   (f"unet.up{k}.conv", f"unet.up{k}.conv.double_conv")]
+        if not bilinear:
+            blocks.append((f"unet.up{k}.up", None))
+    pairs = []
+    for port, ref in blocks:
+        if ref is None:                        # the 2x2 transposed conv
+            pairs += [(f"{port}.{leaf}",) * 2 for leaf in ("weight", "bias")]
+            continue
+        for name, idx in _DOUBLE_CONV:
+            leaves = ("weight",) if name.startswith("conv") else _BN_LEAVES
+            pairs += [(f"{port}.{name}.{leaf}", f"{ref}.{idx}.{leaf}")
+                      for leaf in leaves]
+    pairs += [(f"unet.outc.{leaf}", f"unet.outc.conv.{leaf}")
+              for leaf in ("weight", "bias")]
+    return pairs
+
+
+def import_pth(path: str, cfg: Optional[ModelConfig] = None
+               ) -> Dict[str, torch.Tensor]:
+    """A reference-format ``.pth`` -> the port's unfolded U-Net state dict
+    on the CPU.
+
+    Accepts the reference's checkpoint dict (``{'model_state_dict': ...}``)
+    or a bare state dict, as the reference's loader does
+    (``model/inference.py:83-94``); ``bilinear`` comes from the presence of
+    transposed-conv keys when ``cfg`` is not given.
+    """
+    raw = torch.load(path, map_location="cpu", weights_only=False)
+    sd = raw.get("model_state_dict", raw) if isinstance(raw, dict) else raw
+    return import_state_dict({k: v for k, v in sd.items()
+                              if not k.endswith("num_batches_tracked")}, cfg)
+
+
+def import_state_dict(sd: Mapping[str, Any],
+                      cfg: Optional[ModelConfig] = None
+                      ) -> Dict[str, torch.Tensor]:
+    """Reference state-dict arrays (tensors or numpy) -> the port's
+    unfolded U-Net state dict (f32 on the CPU; BatchNorm's
+    ``num_batches_tracked`` 0, which inference never reads)."""
+    bilinear = not any(".up.weight" in k for k in sd) if cfg is None \
+        else cfg.bilinear
+    depth = 4 if cfg is None else cfg.depth
+    out: Dict[str, torch.Tensor] = {}
+    for port, ref in _pth_keys(depth, bilinear):
+        out[port] = torch.as_tensor(np.asarray(sd[ref]), dtype=torch.float32)
+        if port.endswith(".running_var"):
+            out[port.replace("running_var", "num_batches_tracked")] = \
+                torch.tensor(0)
+    return out
+
+
+def pth_config(state: Mapping[str, torch.Tensor]) -> ModelConfig:
+    """The ``ModelConfig`` of an imported ``.pth``: the reference's config
+    (``ModelConfig()``) with the channels, width, depth and decoder that
+    the weights have."""
+    w = state["unet.inc.conv1.weight"]
+    return ModelConfig(
+        channels=int(w.shape[1]) // 2, base_width=int(w.shape[0]),
+        depth=sum(1 for k in state if k.startswith("unet.down")
+                  and k.endswith(".conv.conv1.weight")),
+        bilinear="unet.up1.up.weight" not in state)
+
+
+def export_state_dict(variables: Mapping[str, torch.Tensor],
+                      cfg: Optional[ModelConfig] = None
+                      ) -> Dict[str, np.ndarray]:
+    """An unfolded port U-Net state dict -> the reference's state-dict
+    arrays, the inverse of :func:`import_state_dict`: the arrays JAX's
+    ``export_state_dict`` gives for the same weights, bit for bit.
+
+    Raises ``ValueError`` for weights the reference's U-Net has no place
+    for (a head, another family) and for folded BatchNorm."""
+    cfg = cfg or ModelConfig()
+    pairs = _pth_keys(cfg.depth, cfg.bilinear)
+    covered = {p for p, _ in pairs}
+    extra = sorted(k for k in variables if k not in covered
+                   and not k.endswith("num_batches_tracked"))
+    if extra:
+        raise ValueError("the reference's .pth holds the plain U-Net "
+                         "(unfolded BatchNorm, no head); no place for "
+                         f"{extra[:4]}")
+    return {ref: variables[port].detach().cpu().numpy()
+            for port, ref in pairs}
+
+
+def export_pth(path: str, variables: Mapping[str, torch.Tensor],
+               cfg: Optional[ModelConfig] = None, epoch: int = 0,
+               train_loss: float = 0.0, val_loss: float = 0.0) -> str:
+    """Write a reference-compatible ``best_model.pth`` checkpoint dict (the
+    shape of the reference's ``model/train.py:232-244``)."""
+    sd = {k: torch.from_numpy(np.ascontiguousarray(v))
+          for k, v in export_state_dict(variables, cfg).items()}
+    torch.save({"epoch": epoch, "model_state_dict": sd,
+                "train_loss": train_loss, "val_loss": val_loss}, path)
+    return path

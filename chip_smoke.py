@@ -116,11 +116,45 @@ Drives the port only (it imports nothing of JAX or of the JAX package):
    peak device memory of the U-Net's steps and the device's busy share of
    one profiled step, printed on a ``train`` line beside the card's name
    and power limit.
+9. serves HTTP (``serve/server.py`` over the batcher; before 5 frees the
+   engines): after ``warmup``, a ``Server`` on 127.0.0.1 over phase 3's
+   production U-Net engine at 256x256 and one over phase 4's flow engine,
+   in background threads, driven by real requests (``http.client``) with
+   PNG frames written by ``ops/png.py``: ``GET /``, ``/health``,
+   ``/model-info``; ``/interpolate-frames`` at 1 and 3 in-betweens, each
+   frame decoded and held against ``generate_intermediate_frames`` on the
+   same frames (1 LSB; 2 for bisected ones); 8 concurrent requests that
+   the batcher fuses (at least one dispatch of more than one request); a
+   300x200 upload the server resizes; the flow server at ``times``
+   0.25,0.6 against ``interpolate_at``; ``/interpolate`` and
+   ``/evaluate-interpolation`` (answered for real where OpenCV is
+   installed, and with ``cv2`` hidden: 500 naming OpenCV while ``/health``
+   still answers with the requests counted); ``make_fastapi_app``'s routes
+   where fastapi is installed. Every group has its launch counts asserted
+   (the w64 head once per U-Net forward of a dispatch, the sampler and the
+   w16 head once per flow time). Then, host clock after warmup: the
+   latency of 60 sequential requests at 1 and at 3 in-betweens (p50,
+   p95), at 1 also with TCP_NODELAY, in-process on this thread and on a
+   new thread a call, the engine alone on one thread and on a new thread
+   a call, a raw loopback round trip of the same bytes; requests/s of 8
+   concurrent clients, one profiled request's device-busy share, and the
+   host PNG decode and encode of a 256x256 frame, printed on a ``serve``
+   line beside the card's name and power limit;
+10. runs the command line in this process (``cli.main``, ``--device`` at
+   its default): ``dataset`` (2 clips at 256x256), ``info`` on phase 8's
+   export (its checkpoint directory), ``infer`` on that export (one w64
+   head launch; the PNG within 1 LSB of the export's engine), ``convert``
+   of a reference-config model (``ModelConfig()``, random weights from a
+   seed) ``.pth`` -> export directory -> ``.pth`` bit for bit and
+   ``infer`` on that ``.pth``; then ``python3 -m
+   ai_based_frame_interpolation_torch serve`` as a subprocess on port 0:
+   its "serving on" line read, one ``/interpolate-frames`` and one
+   ``/health`` sent, SIGTERM, exit code 0.
 
 Besides each kernel's launch counter, the wrappers that pick a route
 (``refine_head``, ``double_conv_fused``, ``up_double_conv_fused``) count
 their launches under it (``.routes``); the kernels line reads those counts
-over the main-path runs of phases 3, 4, 6, 7 and 8.
+over the main-path runs of phases 3, 4, 6, 7, 8, 9 and 10.
 
 Any failure raises and exits non-zero. It prints the kernel record as one
 JSON line before the last, and as the last line
@@ -966,7 +1000,7 @@ def route_counts() -> dict:
             for key, n in getattr(fn, "routes", {}).items() if n}
 
 
-# every route's launches over the main-path runs (phases 3, 4, 6, 7), each
+# every route's launches over the main-path runs (phases 3, 4, 6-10), each
 # run read once after its counts were set to 0 (main_counts)
 MAIN_ROUTES = collections.Counter()
 
@@ -1084,6 +1118,7 @@ def serve_requests(engine, seed) -> dict:
         assert len(ans) == nums[i] and all(
             a.shape == (256, 256, 1) and a.dtype == np.uint8 for a in ans)
     launches = main_counts()
+    batcher.close()
     print(f"requests: 8 answered, batcher {batcher.stats}, launches "
           f"{launches}", flush=True)
     return dict(batcher.stats, launches=launches)
@@ -2229,10 +2264,11 @@ def check_resume(state, ckpt, tcfg, batch) -> dict:
     return {"step": fresh.step - 1, "next_loss_rel_diff": rel}
 
 
-def check_export(ckpt, tcfg, root, val_batch) -> dict:
-    """``best``'s EMA weights exported and served by ``from_checkpoint``:
-    256x256 midpoints on the w64 head within 1 LSB of the plain
-    composition on the exported weights."""
+def check_export(ckpt, tcfg, val_batch) -> dict:
+    """``best``'s EMA weights exported into the checkpoint directory (as
+    ``cli train`` exports them) and served by ``from_checkpoint``: 256x256
+    midpoints on the w64 head within 1 LSB of the plain composition on the
+    exported weights."""
     from ai_based_frame_interpolation_torch.config import ModelConfig
     from ai_based_frame_interpolation_torch.infer.engine import (
         InterpolationEngine)
@@ -2243,7 +2279,7 @@ def check_export(ckpt, tcfg, root, val_batch) -> dict:
 
     best = create_train_state(train_model_of(PROD, 3), None, tcfg)
     best, _, _ = ckpt.restore(best, which="best")
-    out_dir = os.path.join(root, "export")
+    out_dir = ckpt.directory
     save_variables(out_dir, best.variables(use_ema=True), ModelConfig(**PROD))
     engine = InterpolationEngine.from_checkpoint(out_dir)
     f1, f2 = (val_batch[k].cpu().numpy() for k in ("f0", "f1"))
@@ -2256,7 +2292,8 @@ def check_export(ckpt, tcfg, root, val_batch) -> dict:
     print(f"train: best's EMA export through from_checkpoint: {out.shape} "
           f"max uint8 diff vs plain {du}; launches {launches}", flush=True)
     assert out.shape == (len(f1), TRAIN_HW, TRAIN_HW, 1) and du <= 1
-    return {"max_uint8_diff_vs_plain": du, "launches": launches}
+    return {"max_uint8_diff_vs_plain": du, "launches": launches,
+            "dir": out_dir}
 
 
 def time_train(smi, state, batch, loss_cfg, ema_decay) -> dict:
@@ -2276,8 +2313,9 @@ def time_train(smi, state, batch, loss_cfg, ema_decay) -> dict:
                 card=smi)
 
 
-def train_path(record, smi) -> dict:
-    """Phase 8 (module docstring): the trainer on the card."""
+def train_path(record, smi, ckpt_dir) -> dict:
+    """Phase 8 (module docstring): the trainer on the card; its checkpoints
+    and export go to ``ckpt_dir``, which phase 10 reads."""
     from ai_based_frame_interpolation_torch.config import (
         LossConfig, TrainConfig)
     from ai_based_frame_interpolation_torch.data.loader import TripletLoader
@@ -2336,7 +2374,7 @@ def train_path(record, smi) -> dict:
         del state
 
         # train_model: 2 epochs, validation on the kernels, checkpoints
-        ckpt = Checkpointer(os.path.join(root, "ckpt"))
+        ckpt = Checkpointer(ckpt_dir)
         logs = []
         reset_counts()
         t0 = time.perf_counter()
@@ -2357,7 +2395,7 @@ def train_path(record, smi) -> dict:
                               "launches": launches}
         out["validation"] = check_validation(state, val_batches)
         out["resume"] = check_resume(state, ckpt, tcfg, batches[1])
-        out["export"] = check_export(ckpt, tcfg, root, val_batches[0])
+        out["export"] = check_export(ckpt, tcfg, val_batches[0])
         del state
 
         # the flow production config with its losses on
@@ -2401,6 +2439,690 @@ def train_path(record, smi) -> dict:
     return out
 
 
+SERVE_HW = (256, 256)          # the serving resolution (ServeConfig's users)
+SERVE_TIMED = 60               # requests per timed single-client loop
+SERVE_CLIENTS = 8
+SERVE_CLIENT_REQUESTS = 20     # per client in the concurrent loop
+# bisected in-betweens against the engine at another batch size: up to 2
+# LSB at t=3/4 from bf16 bisection (phase 7's 4x record); midpoints 1 LSB
+BISECT_LSB = 2
+
+
+def multipart(fields) -> tuple:
+    """(body, content type) of a multipart/form-data request: a value is a
+    (filename, content type, bytes) file or a form field."""
+    boundary = "smokeboundary7f3a"
+    out = []
+    for name, value in fields.items():
+        out.append(f"--{boundary}\r\n".encode())
+        if isinstance(value, tuple):
+            fname, ctype, data = value
+            out.append(f'Content-Disposition: form-data; name="{name}"; '
+                       f'filename="{fname}"\r\nContent-Type: {ctype}\r\n\r\n'
+                       .encode() + data)
+        else:
+            out.append(f'Content-Disposition: form-data; name="{name}"'
+                       f'\r\n\r\n{value}'.encode())
+        out.append(b"\r\n")
+    out.append(f"--{boundary}--\r\n".encode())
+    return b"".join(out), f"multipart/form-data; boundary={boundary}"
+
+
+def http_call(port, method, path, body=None, ctype=None, timeout=300,
+              nodelay=False):
+    """(status, headers, body bytes) of one request on a new connection
+    (with TCP_NODELAY on the client's socket when ``nodelay``)."""
+    import http.client
+    import socket
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        if nodelay:
+            conn.connect()
+            conn.sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+        conn.request(method, path, body=body,
+                     headers={"Content-Type": ctype} if ctype else {})
+        resp = conn.getresponse()
+        return resp.status, dict(resp.getheaders()), resp.read()
+    finally:
+        conn.close()
+
+
+def png_frames(h, w, seed) -> tuple:
+    """Two seeded gray frames and their PNG bytes (``ops/png.py``)."""
+    from ai_based_frame_interpolation_torch.ops.png import encode_png
+
+    f1, f2 = frames(1, h, w, seed=seed)
+    return f1[0], f2[0], encode_png(f1[0]), encode_png(f2[0])
+
+
+def decode_frames(data) -> list:
+    """The base64 PNG frames of an /interpolate-frames answer (HWC gray)."""
+    import base64
+
+    from ai_based_frame_interpolation_torch.ops.png import decode_png, to_gray
+
+    return [to_gray(decode_png(base64.b64decode(f))) for f in data["frames"]]
+
+
+def post_frames(port, p1, p2, nodelay=False, **fields) -> list:
+    """POST /interpolate-frames; the returned frames decoded (HWC gray)."""
+    body, ctype = multipart(dict(frame1=("a.png", "image/png", p1),
+                                 frame2=("b.png", "image/png", p2), **fields))
+    status, _, blob = http_call(port, "POST", "/interpolate-frames", body,
+                                ctype, nodelay=nodelay)
+    assert status == 200, (status, blob[:300])
+    return decode_frames(json.loads(blob))
+
+
+def max_lsb(got, want) -> int:
+    return max(int(np.abs(g.astype(np.int16) - w.astype(np.int16)).max())
+               for g, w in zip(got, want))
+
+
+def percentile(xs, q) -> float:
+    return float(np.percentile(np.asarray(xs), q))
+
+
+def serve_launch_check(label, launches, want) -> dict:
+    print(f"serve: {label}: launches {launches}", flush=True)
+    assert launches == dict(NO_LAUNCHES, **want), (label, launches, want)
+    return launches
+
+
+def time_requests(port, p1, p2, num, n, nodelay=False) -> list:
+    """Host ms of ``n`` sequential /interpolate-frames requests, each with
+    the client's decode of the answer."""
+    out = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        post_frames(port, p1, p2, nodelay=nodelay, num_intermediate=num)
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def time_service(service, p1, p2, num, n, fresh_thread=False) -> list:
+    """Host ms of ``n`` in-process ``interpolate_frames`` calls on parsed
+    parts (no HTTP), each with the same client-side decode; with
+    ``fresh_thread`` each call runs on a new thread, as the HTTP server
+    runs each connection."""
+    from ai_based_frame_interpolation_torch.serve.server import (
+        parse_multipart)
+
+    parts = parse_multipart(*multipart(dict(
+        frame1=("a.png", "image/png", p1), frame2=("b.png", "image/png", p2),
+        num_intermediate=num)))
+
+    def call():
+        decode_frames(service.interpolate_frames(parts))
+
+    out = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        if fresh_thread:
+            worker = threading.Thread(target=call)
+            worker.start()
+            worker.join()
+        else:
+            call()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def engine_ms(engine, f1, f2, n, fresh_thread) -> list:
+    """Host ms of ``n`` ``generate_intermediate_frames(f1, f2, 1)`` calls
+    of the engine itself, on this thread or each on a new thread (as the
+    JAX batcher's design would run them under the HTTP server)."""
+    out = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        if fresh_thread:
+            worker = threading.Thread(
+                target=engine.generate_intermediate_frames,
+                args=(f1, f2, 1))
+            worker.start()
+            worker.join()
+        else:
+            engine.generate_intermediate_frames(f1, f2, 1)
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def loopback_ms(up: int, down: int, n: int, unix: bool) -> list:
+    """Host ms of ``n`` raw socket round trips on this machine: ``up``
+    bytes sent, ``down`` bytes answered once they have all arrived, no
+    HTTP; over TCP on 127.0.0.1, or a Unix socket pair."""
+    import socket
+
+    def serve(conn):
+        with conn:
+            for _ in range(n):
+                got = 0
+                while got < up:
+                    got += len(conn.recv(1 << 16))
+                conn.sendall(bytes(down))
+
+    if unix:
+        cli, srv = socket.socketpair()
+        worker = threading.Thread(target=serve, args=(srv,))
+    else:
+        lsock = socket.create_server(("127.0.0.1", 0))
+        cli = socket.create_connection(lsock.getsockname())
+        worker = threading.Thread(target=lambda: serve(lsock.accept()[0]))
+    worker.start()
+    out = []
+    with cli:
+        for _ in range(n):
+            t0 = time.perf_counter()
+            cli.sendall(bytes(up))
+            got = 0
+            while got < down:
+                got += len(cli.recv(1 << 16))
+            out.append((time.perf_counter() - t0) * 1e3)
+    worker.join(timeout=60)
+    if not unix:
+        lsock.close()
+    return out
+
+
+def latency(ms) -> dict:
+    return {"requests": len(ms), "p50_ms": percentile(ms, 50),
+            "p95_ms": percentile(ms, 95), "mean_ms": float(np.mean(ms))}
+
+
+def concurrent_requests(port, pairs, num, per_client) -> tuple:
+    """``len(pairs)`` clients, each sending ``per_client``
+    /interpolate-frames requests for its pair; (answers, wall seconds)."""
+    answers = [None] * len(pairs)
+    errors = []
+    gate = threading.Barrier(len(pairs))
+
+    def client(i):
+        try:
+            gate.wait(timeout=60)
+            for _ in range(per_client):
+                answers[i] = post_frames(port, pairs[i][2], pairs[i][3],
+                                         num_intermediate=num)
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(len(pairs))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    assert not any(t.is_alive() for t in threads), "a client hung"
+    if errors:
+        raise errors[0]
+    return answers, wall
+
+
+def has_module(name) -> bool:
+    import importlib.util
+
+    return importlib.util.find_spec(name) is not None
+
+
+def opencv_requests(port, p1, p2) -> dict:
+    """/interpolate (3 in-betweens) and /evaluate-interpolation once each:
+    {path: (status, headers, body)}."""
+    out = {}
+    for path, fields in (
+            ("/interpolate", dict(num_intermediate=3, fps=30)),
+            ("/evaluate-interpolation",
+             dict(ground_truth=("g.png", "image/png", p1)))):
+        body, ctype = multipart(dict(frame1=("a.png", "image/png", p1),
+                                     frame2=("b.png", "image/png", p2),
+                                     **fields))
+        reset_counts()
+        out[path] = http_call(port, "POST", path, body, ctype) + (
+            main_counts(),)
+    return out
+
+
+@contextlib.contextmanager
+def opencv_hidden():
+    """``import cv2`` fails inside (as on a machine without OpenCV)."""
+    saved = sys.modules.get("cv2", ...)
+    sys.modules["cv2"] = None
+    try:
+        yield
+    finally:
+        if saved is ...:
+            del sys.modules["cv2"]
+        else:
+            sys.modules["cv2"] = saved
+
+
+def opencv_endpoints(port, p1, p2, served) -> dict:
+    """/interpolate and /evaluate-interpolation. Without OpenCV (the card's
+    machine, or OpenCV hidden where it is installed): 500 with a detail
+    that names it, and the server keeps serving. Where it is installed,
+    first the real answers: an MP4, and three methods' metrics."""
+    out = {"opencv_installed": has_module("cv2")}
+    if out["opencv_installed"]:
+        answers = opencv_requests(port, p1, p2)
+        status, headers, _, launches = answers["/interpolate"]
+        assert status == 200 and headers["Content-Type"] == "video/mp4"
+        out["interpolate"] = {"status": status, "launches": launches}
+        serve_launch_check("/interpolate", launches, dict(refine_head=3))
+        status, _, blob, launches = answers["/evaluate-interpolation"]
+        assert status == 200, (status, blob[:300])
+        out["evaluate"] = {"status": status, "launches": launches,
+                           "metrics": json.loads(blob)["metrics_by_method"]}
+        serve_launch_check("/evaluate-interpolation", launches,
+                           dict(refine_head=1, ssim_eval=3))
+        served += 2
+    with opencv_hidden():
+        answers = opencv_requests(port, p1, p2)
+    # /interpolate refuses before the card; /evaluate-interpolation runs
+    # the U-Net prediction first, as JAX's does
+    for path, key, want in (("/interpolate", "interpolate_no_opencv", {}),
+                            ("/evaluate-interpolation",
+                             "evaluate_no_opencv", dict(refine_head=1))):
+        status, _, blob, launches = answers[path]
+        detail = json.loads(blob)["detail"]
+        print(f"serve: {path} without OpenCV: {status} {detail!r}",
+              flush=True)
+        assert status == 500 and "OpenCV" in detail, (status, detail)
+        serve_launch_check(f"{path} without OpenCV", launches, want)
+        out[key] = {"status": status, "detail": detail, "launches": launches}
+    status, _, blob = http_call(port, "GET", "/health")
+    health = json.loads(blob)
+    assert status == 200 and health["requests_served"] == served, health
+    out["health_after"] = health
+    return out
+
+
+def asgi_routes(engine) -> dict:
+    """``make_fastapi_app``'s routes where fastapi is installed; its
+    ``ImportError`` naming the stdlib server where it is not."""
+    from ai_based_frame_interpolation_torch.serve.asgi import make_fastapi_app
+
+    if not has_module("fastapi"):
+        try:
+            make_fastapi_app(engine)
+        except ImportError as e:
+            assert "serve.server.Server" in str(e), e
+            return {"fastapi": False}
+        raise AssertionError("make_fastapi_app built without fastapi")
+    app = make_fastapi_app(engine, resolution=SERVE_HW)
+    routes = sorted(getattr(r, "path", "") for r in app.routes)
+    want = {"/", "/health", "/model-info", "/interpolate",
+            "/interpolate-video"}
+    print(f"serve: make_fastapi_app routes {routes}", flush=True)
+    assert want <= set(routes), routes
+    return {"fastapi": True, "routes": routes}
+
+
+def time_png_codec(h, w, iters=50) -> dict:
+    """Host ms of the port's PNG decode and encode of one gray frame."""
+    from ai_based_frame_interpolation_torch.ops.png import (
+        decode_png, encode_png)
+
+    img = frames(1, h, w, seed=9)[0][0]
+    data = encode_png(img)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        decode_png(data)
+    dec = (time.perf_counter() - t0) * 1e3 / iters
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        encode_png(img)
+    enc = (time.perf_counter() - t0) * 1e3 / iters
+    return {"decode_ms": dec, "encode_ms": enc, "png_bytes": len(data)}
+
+
+def serve_path(record, unet, flow, smi) -> dict:
+    """Phase 9 (module docstring): the HTTP server over the batcher."""
+    from ai_based_frame_interpolation_torch.config import ServeConfig
+    from ai_based_frame_interpolation_torch.models.unet import (
+        count_parameters)
+    from ai_based_frame_interpolation_torch.ops.image import resize_uint8
+    from ai_based_frame_interpolation_torch.serve.server import (
+        Server, warmup)
+
+    out = {"hw": list(SERVE_HW)}
+    cfg = ServeConfig(host="127.0.0.1", port=0)
+    out["warmup_s"] = {"unet": warmup(unet, SERVE_HW),
+                       "flow": warmup(flow, SERVE_HW)}
+    srv = Server(unet, cfg, resolution=SERVE_HW).start_background()
+    fsrv = Server(flow, cfg, resolution=SERVE_HW).start_background()
+    try:
+        port, batcher = srv.port, srv.service.batcher
+        for path in ("/", "/health", "/model-info"):
+            status, _, blob = http_call(port, "GET", path)
+            assert status == 200, (path, status, blob[:300])
+        info = json.loads(blob)
+        assert info["parameters"] == count_parameters(unet.model) and \
+            info["compute_dtype"] == "bfloat16" and \
+            info["resolution"] == list(SERVE_HW), info
+        health = json.loads(http_call(port, "GET", "/health")[2])
+        assert health["backend"] == unet.device.type == "cuda", health
+        served = 0
+
+        # num_intermediate 1 and 3, held against the engine
+        f1, f2, p1, p2 = png_frames(*SERVE_HW, seed=11)
+        for num, per_dispatch, bound in ((1, 1, 1), (3, 3, BISECT_LSB)):
+            reset_counts()
+            got = post_frames(port, p1, p2, num_intermediate=num)
+            served += 1
+            launches = serve_launch_check(f"num_intermediate={num}",
+                                          main_counts(),
+                                          dict(refine_head=per_dispatch))
+            want = unet.generate_intermediate_frames(f1, f2, num)
+            du = max_lsb(got, want)
+            print(f"serve: /interpolate-frames num_intermediate={num}: "
+                  f"{len(got)} frames, max uint8 diff vs the engine {du} "
+                  f"(bound {bound})", flush=True)
+            assert len(got) == num and du <= bound
+            out[f"frames_n{num}"] = {"max_uint8_diff_vs_engine": du,
+                                     "launches": launches}
+
+        # 8 concurrent requests: the batcher fuses them
+        pairs = [png_frames(*SERVE_HW, seed=20 + i) for i in range(8)]
+        before = dict(batcher.stats)
+        reset_counts()
+        answers, _ = concurrent_requests(port, pairs, 1, 1)
+        served += 8
+        stats = batcher.stats
+        dispatches = stats["dispatches"] - before["dispatches"]
+        launches = serve_launch_check("8 concurrent", main_counts(),
+                                      dict(refine_head=dispatches))
+        du = max(max_lsb(a, unet.generate_intermediate_frames(q[0], q[1], 1))
+                 for a, q in zip(answers, pairs))
+        print(f"serve: 8 concurrent requests in {dispatches} dispatches, "
+              f"batcher {stats}; max uint8 diff vs the engine one pair a "
+              f"call {du}", flush=True)
+        assert stats["max_batch_seen"] > 1 and du <= 1
+        out["concurrent"] = {"dispatches": dispatches, "batcher": stats,
+                             "max_uint8_diff_vs_engine": du,
+                             "launches": launches}
+
+        # an upload at another size: the server resizes it
+        g1, g2 = frames(1, 200, 300, seed=13)
+        from ai_based_frame_interpolation_torch.ops.png import encode_png
+
+        reset_counts()
+        got = post_frames(port, encode_png(g1[0]), encode_png(g2[0]),
+                          num_intermediate=1)
+        served += 1
+        launches = serve_launch_check("300x200 upload", main_counts(),
+                                      dict(refine_head=1))
+        want = unet.generate_intermediate_frames(
+            resize_uint8(g1[0], SERVE_HW), resize_uint8(g2[0], SERVE_HW), 1)
+        du = max_lsb(got, want)
+        print(f"serve: a 300x200 upload resized to {SERVE_HW}: "
+              f"{got[0].shape}, max uint8 diff vs the engine {du}",
+              flush=True)
+        assert got[0].shape == (*SERVE_HW, 1) and du <= 1
+        out["resized_upload"] = {"max_uint8_diff_vs_engine": du,
+                                 "launches": launches}
+
+        # the flow server at exact times
+        reset_counts()
+        times = [0.25, 0.6]
+        got = post_frames(fsrv.port, p1, p2,
+                          times=",".join(str(t) for t in times))
+        launches = serve_launch_check("flow times", main_counts(),
+                                      dict(refine_head=2, sample_fused=2))
+        du = max_lsb(got, flow.interpolate_at(f1, f2, times))
+        print(f"serve: flow server /interpolate-frames times={times}: max "
+              f"uint8 diff vs interpolate_at {du}", flush=True)
+        assert len(got) == 2 and du <= 1
+        out["flow_times"] = {"max_uint8_diff_vs_engine": du,
+                             "launches": launches}
+
+        out["opencv_endpoints"] = opencv_endpoints(port, p1, p2, served)
+        out["asgi"] = asgi_routes(unet)
+
+        # timings (host clock, after warmup), counts read after each group:
+        # the server at 1 and 3 in-betweens; then at 1 in-between with
+        # TCP_NODELAY on the server's sockets, and on the client's too; the
+        # service called in-process (no HTTP) on this thread and on a fresh
+        # thread a call; then the server again
+        handler = srv.httpd.RequestHandlerClass
+        runs = (("n1", 1, False, False), ("n3", 3, False, False),
+                ("n1_server_nodelay", 1, True, False),
+                ("n1_both_nodelay", 1, True, True),
+                ("n1_in_process", 1, "main", False),
+                ("n1_in_process_fresh_thread", 1, "fresh", False),
+                ("n1_again", 1, False, False))
+        for key, num, server_nodelay, client_nodelay in runs:
+            before = batcher.stats["dispatches"]
+            reset_counts()
+            if server_nodelay in ("main", "fresh"):
+                lat = time_service(srv.service, p1, p2, num, SERVE_TIMED,
+                                   fresh_thread=server_nodelay == "fresh")
+            else:
+                handler.disable_nagle_algorithm = server_nodelay
+                lat = time_requests(port, p1, p2, num, SERVE_TIMED,
+                                    nodelay=client_nodelay)
+            handler.disable_nagle_algorithm = False
+            dispatches = batcher.stats["dispatches"] - before
+            assert dispatches == SERVE_TIMED, dispatches
+            out[f"latency_{key}"] = dict(latency(lat), launches=(
+                serve_launch_check(f"timed {key}", main_counts(),
+                                   dict(refine_head=dispatches * num))))
+        before = dict(batcher.stats)
+        reset_counts()
+        _, wall = concurrent_requests(port, pairs, 1, SERVE_CLIENT_REQUESTS)
+        n_req = SERVE_CLIENTS * SERVE_CLIENT_REQUESTS
+        dispatches = batcher.stats["dispatches"] - before["dispatches"]
+        out["concurrent_timed"] = {
+            "clients": SERVE_CLIENTS, "requests": n_req, "seconds": wall,
+            "requests_per_s": n_req / wall,
+            "avg_batch": n_req / dispatches,
+            "launches": serve_launch_check("timed 8 clients", main_counts(),
+                                           dict(refine_head=dispatches))}
+        prof = profile_call(lambda: post_frames(port, p1, p2,
+                                                num_intermediate=1))
+        reset_counts()
+        out["profiled_request"] = {k: prof[k] for k in (
+            "profiled_ms", "device_busy_ms", "device_busy_share",
+            "device_kernels")}
+        out["png_256"] = time_png_codec(*SERVE_HW)
+        # a thread's first PyTorch work on the card: the engine alone
+        for key, fresh in (("engine_main_thread", False),
+                           ("engine_fresh_thread", True)):
+            out[key] = latency(engine_ms(unet, f1, f2, SERVE_TIMED, fresh))
+        # the transport alone: a request's and an answer's bytes at 1
+        # in-between (two PNGs up, one base64 PNG down) without HTTP
+        body, _ = multipart(dict(frame1=("a.png", "image/png", p1),
+                                 frame2=("b.png", "image/png", p2),
+                                 num_intermediate=1))
+        down = len(json.dumps({"frames": ["x" * (4 * len(p1) // 3)]}))
+        out["loopback"] = {"up_bytes": len(body), "down_bytes": down}
+        for key, unix in (("tcp", False), ("unix", True)):
+            out["loopback"][key] = latency(loopback_ms(len(body), down,
+                                                       SERVE_TIMED, unix))
+    finally:
+        srv.shutdown()
+        fsrv.shutdown()
+    l1, l3, c = out["latency_n1"], out["latency_n3"], out["concurrent_timed"]
+    print(f"[{smi}] serve latency at 1 in-between, p50/p95 ms: "
+          + "; ".join(f"{k} {out['latency_' + k]['p50_ms']:.3f}/"
+                      f"{out['latency_' + k]['p95_ms']:.3f}"
+                      for k, *_ in runs), flush=True)
+    p = out["profiled_request"]
+    share = ("not recorded" if p["device_busy_share"] is None
+             else f"{100 * p['device_busy_share']:.2f}%")
+    print(f"[{smi}] serve (HTTP /interpolate-frames, {SERVE_HW[0]}x"
+          f"{SERVE_HW[1]} gray, production U-Net, bf16, one client): "
+          f"1 in-between p50 {l1['p50_ms']:.3f} ms p95 {l1['p95_ms']:.3f} "
+          f"ms; 3 in-betweens p50 {l3['p50_ms']:.3f} ms p95 "
+          f"{l3['p95_ms']:.3f} ms ({SERVE_TIMED} requests each, with the "
+          f"client's decode); "
+          f"{SERVE_CLIENTS} clients {c['requests_per_s']:.3f} requests/s "
+          f"(avg batch {c['avg_batch']:.3f}); device busy {share} of a "
+          f"profiled request of {p['profiled_ms']:.3f} ms; host PNG decode "
+          f"{out['png_256']['decode_ms']:.3f} ms, encode "
+          f"{out['png_256']['encode_ms']:.3f} ms a frame; a raw round trip "
+          f"of the same bytes ({out['loopback']['up_bytes']} up, "
+          f"{out['loopback']['down_bytes']} down) p50 "
+          f"{out['loopback']['tcp']['p50_ms']:.3f} ms over TCP on "
+          f"127.0.0.1, {out['loopback']['unix']['p50_ms']:.3f} ms over a "
+          f"Unix socket pair; the engine alone p50 "
+          f"{out['engine_main_thread']['p50_ms']:.3f} ms on one thread, "
+          f"{out['engine_fresh_thread']['p50_ms']:.3f} ms on a new thread a "
+          f"call", flush=True)
+    record["serve"] = out
+    return out
+
+
+def cli_main(argv) -> tuple:
+    """(exit code, stdout) of ``cli.main(argv)`` in this process."""
+    import io
+
+    from ai_based_frame_interpolation_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    text = buf.getvalue()
+    for line in text.splitlines():
+        print(f"cli {argv[0]}: {line}", flush=True)
+    return rc, text
+
+
+def serve_subprocess(export, timeout=180) -> dict:
+    """``python3 -m ai_based_frame_interpolation_torch serve`` on port 0:
+    read its "serving on" line, send /interpolate-frames and /health, stop
+    it with SIGTERM; it must exit 0."""
+    import signal
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, "-m", "ai_based_frame_interpolation_torch",
+           "serve", "--host", "127.0.0.1", "--port", "0", "--model", export,
+           "--height", str(SERVE_HW[0]), "--width", str(SERVE_HW[1])]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=root, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    lines, found = [], []
+
+    def read():
+        for line in proc.stdout:
+            lines.append(line.rstrip())
+            m = re.search(r"serving on http://127\.0\.0\.1:(\d+)", line)
+            if m and not found:
+                found.append(int(m.group(1)))
+
+    reader = threading.Thread(target=read, daemon=True)
+    reader.start()
+    try:
+        while not found and proc.poll() is None and \
+                time.perf_counter() - t0 < timeout:
+            time.sleep(0.1)
+        assert found, f"no 'serving on' line: {lines}"
+        start_s = time.perf_counter() - t0
+        port = found[0]
+        f1, f2, p1, p2 = png_frames(*SERVE_HW, seed=31)
+        got = post_frames(port, p1, p2, num_intermediate=1)
+        assert len(got) == 1 and got[0].shape == (*SERVE_HW, 1)
+        status, _, blob = http_call(port, "GET", "/health")
+        health = json.loads(blob)
+        assert status == 200 and health["requests_served"] == 1 and \
+            health["backend"] == "cuda", health
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+        reader.join(timeout=10)
+    for line in lines:
+        print(f"cli serve (subprocess): {line}", flush=True)
+    print(f"cli serve (subprocess): serving after {start_s:.3f} s, exit "
+          f"code {rc} after SIGTERM", flush=True)
+    assert rc == 0, rc
+    return {"serving_after_s": start_s, "exit_code": rc, "health": health}
+
+
+def cli_path(record, export, smi) -> dict:
+    """Phase 10 (module docstring): the port's command line."""
+    from ai_based_frame_interpolation_torch.config import ModelConfig
+    from ai_based_frame_interpolation_torch.infer.engine import (
+        InterpolationEngine)
+    from ai_based_frame_interpolation_torch.ops.image import (
+        load_image, save_image)
+    from ai_based_frame_interpolation_torch.train.checkpoint import (
+        export_pth)
+
+    out = {}
+    with tempfile.TemporaryDirectory() as root:
+        data = os.path.join(root, "data")
+        rc, _ = cli_main(["dataset", "--output-dir", data, "--videos", "2",
+                          "--size", str(SERVE_HW[0])])
+        clips = sorted(os.listdir(data))
+        assert rc == 0 and len(clips) == 2 and all(
+            len(os.listdir(os.path.join(data, c))) == 16 for c in clips)
+
+        rc, text = cli_main(["info", "--model", export])
+        assert rc == 0 and "epochs completed: 2" in text, text
+
+        f1, f2 = frames(1, *SERVE_HW, seed=41)
+        a, b = os.path.join(root, "a.png"), os.path.join(root, "b.png")
+        save_image(a, f1[0])
+        save_image(b, f2[0])
+        mid = os.path.join(root, "mid.png")
+        reset_counts()
+        size = ["--height", str(SERVE_HW[0]), "--width", str(SERVE_HW[1])]
+        rc, _ = cli_main(["infer", "--frame1", a, "--frame2", b, "--model",
+                          export, "--num-intermediate", "1", "--output",
+                          mid] + size)
+        launches = main_counts()
+        assert rc == 0 and launches == dict(NO_LAUNCHES, refine_head=1), \
+            launches
+        want = InterpolationEngine.from_checkpoint(export).interpolate_pair(
+            f1[0], f2[0])
+        du = max_lsb([load_image(mid)], [want])
+        print(f"cli infer on the export: max uint8 diff vs its engine {du}; "
+              f"launches {launches}", flush=True)
+        assert du <= 1
+        out["infer_export"] = {"max_uint8_diff_vs_engine": du,
+                               "launches": launches}
+
+        # the reference config's .pth -> export directory -> .pth, bit for
+        # bit, then infer on it (no head: no kernel)
+        model = train_model_of({}, 43)
+        with torch.no_grad():
+            gen = torch.Generator().manual_seed(44)
+            for name, buf in model.named_buffers():
+                if name.endswith("running_mean"):
+                    buf.copy_(0.1 * torch.randn(buf.shape, generator=gen))
+                elif name.endswith("running_var"):
+                    buf.copy_(0.5 + torch.rand(buf.shape, generator=gen))
+        ref = export_pth(os.path.join(root, "ref.pth"), model.state_dict(),
+                         ModelConfig())
+        conv = os.path.join(root, "converted")
+        back = os.path.join(root, "back.pth")
+        assert cli_main(["convert", "--input", ref, "--output", conv])[0] == 0
+        assert cli_main(["convert", "--input", conv, "--output", back])[0] \
+            == 0
+        sd0 = torch.load(ref, weights_only=False)["model_state_dict"]
+        sd1 = torch.load(back, weights_only=False)["model_state_dict"]
+        assert list(sd0) == list(sd1) and all(
+            torch.equal(sd0[k], sd1[k]) for k in sd0)
+        print(f"cli convert: .pth -> export -> .pth, {len(sd0)} arrays bit "
+              "for bit", flush=True)
+        reset_counts()
+        rc, _ = cli_main(["infer", "--frame1", a, "--frame2", b, "--model",
+                          ref, "--output", mid] + size)
+        launches = main_counts()
+        assert rc == 0 and launches == NO_LAUNCHES, launches
+        want = InterpolationEngine.from_checkpoint(ref).interpolate_pair(
+            f1[0], f2[0])
+        du = max_lsb([load_image(mid)], [want])
+        assert du <= 1
+        out["convert"] = {"arrays": len(sd0), "infer_max_uint8_diff": du}
+    out["serve_subprocess"] = serve_subprocess(export)
+    record["cli"] = out
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -2414,6 +3136,14 @@ def main() -> int:
           flush=True)
     record = {"card": smi, "torch": torch.__version__,
               "cuda": torch.version.cuda}
+    # host modules the port's optional paths use (OpenCV: the MP4s, the
+    # Farneback baseline, non-PNG uploads; matplotlib: eval's plots)
+    import importlib.util
+
+    record["host_modules"] = {m: importlib.util.find_spec(m) is not None
+                              for m in ("cv2", "matplotlib", "PIL",
+                                        "pandas", "fastapi")}
+    print(f"host modules: {record['host_modules']}", flush=True)
 
     build(record)                              # 1.
     check_kernels(record)                      # 2.
@@ -2426,9 +3156,28 @@ def main() -> int:
     flow, flow_launches = flow_path(record)    # 4.
     evals = eval_path(record, unet, flow)      # 6. (before 5 frees them)
     video, video_routes = video_path(record, unet, flow, smi)   # 7.
-    train = train_path(record, smi)            # 8.
+    keep = tempfile.TemporaryDirectory()       # phase 8's export, for 10
+    train = train_path(record, smi, os.path.join(keep.name, "ckpt"))  # 8.
     val_launches = train["train_model"]["launches"]
     flow_val = train["flow_validation_launches"]
+    serve = serve_path(record, unet, flow, smi)                 # 9.
+    cli = cli_path(record, train["export"]["dir"], smi)         # 10.
+    keep.cleanup()
+    # the kernels' launches over phases 9 and 10 (each group counted)
+    served = collections.Counter()
+    groups = [v["launches"] for k, v in serve.items()
+              if isinstance(v, dict) and "launches" in v
+              and k != "flow_times"]
+    groups += [v["launches"] for v in serve["opencv_endpoints"].values()
+               if isinstance(v, dict) and "launches" in v]
+    groups.append(cli["infer_export"]["launches"])
+    for g in groups:
+        served["refine_head_w64"] += g["refine_head"]
+        served["ssim_eval"] += g["ssim_eval"]
+    flow_served = serve["flow_times"]["launches"]
+    served["refine_head_w16"] += flow_served["refine_head"]
+    served["sample_fused"] += flow_served["sample_fused"]
+    record["serve_cli_launches"] = dict(served)
 
     # 5. timings (CUDA events, after warm-up); the default U-Net route
     # before and after the option core
@@ -2517,23 +3266,25 @@ def main() -> int:
              unet_launches["refine_head"]
              + video_routes["refine_head w64/w64/bfloat16"]
              + val_launches["refine_head"]
-             + train["export"]["launches"]["refine_head"],
+             + train["export"]["launches"]["refine_head"]
+             + served["refine_head_w64"],
              record["refine_head_w64_max_abs_err"],
              "refine_head_w64_1088x1920"),
             ("refine_head_w16", "refine_head.cu", "refine_fused.py:417",
              flow_launches["refine_head"]
              + video_routes["refine_head w16/w16/bfloat16"]
-             + flow_val["refine_head"],
+             + flow_val["refine_head"] + served["refine_head_w16"],
              record["refine_head_w16_max_abs_err"],
              "refine_head_w16_1088x1920"),
             ("sample_fused", "sample_fused.cu", "warp_fused.py:183",
              flow_launches["sample_fused"]
              + video["flow_retime_2.5"]["launches"]["sample_fused"]
-             + flow_val["sample_fused"],
+             + flow_val["sample_fused"] + served["sample_fused"],
              record["sample_fused_max_abs_err"], "sample_fused_1088x1920"),
             ("ssim_eval_256", "ssim_eval.cu", "ssim_fused.py:63",
              evals["unet_256"]["launches"]["ssim_eval"]
-             + val_launches["ssim_eval"] + flow_val["ssim_eval"],
+             + val_launches["ssim_eval"] + flow_val["ssim_eval"]
+             + served["ssim_eval"],
              ssim_errs["8x256x256"], "ssim_eval_8x256x256"),
             ("ssim_eval_1080", "ssim_eval.cu", "ssim_fused.py:169",
              evals["unet_1080"]["launches"]["ssim_eval"],

@@ -123,9 +123,19 @@ def test_png_gray_alpha_and_encoder_round_trip(tmp_path):
         assert np.array_equal(want, img)
 
 
-def test_png_refuses_what_it_does_not_read(tmp_path):
+def test_png_refuses_what_it_does_not_read(tmp_path, monkeypatch):
+    # other formats go through OpenCV where it is installed; without it a
+    # JPEG raises naming OpenCV and the ROADMAP item, and the port writes
+    # PNG only
+    path = str(tmp_path / "frame.jpg")
+    assert cv2.imwrite(path, _image(6, 8, 1)[..., 0])
+    assert np.array_equal(load_image(path),
+                          cv2.imread(path, cv2.IMREAD_GRAYSCALE)[..., None])
+    monkeypatch.setitem(__import__("sys").modules, "cv2", None)
+    with pytest.raises(ImportError, match="OpenCV.*ROADMAP"):
+        load_image(path)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        load_image(str(tmp_path / "frame.jpg"))
+        save_image(path, _image(6, 8, 1))
     data = bytearray(encode_png(_image(4, 4, 1)))
     data[24] = 16                                   # bit depth 16
     data[29:33] = struct.pack(">I", zlib.crc32(bytes(data[12:29])))

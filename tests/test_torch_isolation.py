@@ -79,7 +79,8 @@ def test_the_video_stream_loads_no_opencv():
 
 
 def test_opencv_is_imported_only_by_the_farneback_baseline():
-    # and by data/video.py's file reader and writer, through _opencv
+    # and by data/video.py's file reader and writer, through _opencv, and
+    # by ops/image.py's decode_image for the formats other than PNG
     users = set()
     for path in sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]:
         tree = ast.parse(path.read_text(), str(path))
@@ -94,7 +95,27 @@ def test_opencv_is_imported_only_by_the_farneback_baseline():
                          if lo <= node.lineno <= hi] or ["<module>"]
                 users.add((path.name, where[-1]))
     assert users == {("flow.py", "farneback_midpoint"),
-                     ("video.py", "_opencv")}
+                     ("video.py", "_opencv"), ("image.py", "decode_image")}
+
+
+@pytest.mark.parametrize("module", ["serve.server", "serve.asgi", "cli",
+                                    "__main__"])
+def test_serving_and_the_cli_load_no_jax_opencv_plots_or_fastapi(module):
+    # the card's machine need not have them: each is imported where a
+    # path that needs it runs (__main__ runs main: --help, which exits 0)
+    absent = FORBIDDEN + ("cv2", "matplotlib", "fastapi")
+    code = (
+        "import sys\n"
+        "sys.argv = ['fi-torch', '--help']\n"
+        "try:\n"
+        f"    import ai_based_frame_interpolation_torch.{module}\n"
+        "except SystemExit as e:\n"
+        "    assert e.code == 0, e.code\n"
+        f"bad = [m for m in sys.modules if m.split('.')[0] in {absent!r}]\n"
+        "assert not bad, bad\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
 
 
 def _imported_roots(path):

@@ -505,8 +505,9 @@ def test_resume_is_bit_identical_and_exports(cases, scene_tree, port_run,
     b = _batch(6, n=2)
     got, want = (e.interpolate_batch(b["f0"], b["f1"]) for e in (eng, ref))
     assert np.max(np.abs(got.astype(int) - want.astype(int))) <= 1
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP Queue A, weight interchange"):
+    # a .pth is the reference's format (tests/test_torch_checkpoint_import
+    # .py): a missing one is a missing file
+    with pytest.raises(FileNotFoundError):
         InterpolationEngine.from_checkpoint(str(tmp_path / "best_model.pth"),
                                             device="cpu")
     with pytest.raises(FileNotFoundError):
