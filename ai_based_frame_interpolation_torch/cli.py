@@ -92,8 +92,9 @@ def build_parser() -> argparse.ArgumentParser:
                              "bound in pixels (default 32)")
         sp.add_argument("--core-pack", type=int, default=1,
                         help="unet family, inference only: fold g batch "
-                             "items into channels (grouped convs). Not "
-                             "ported: values above 1 raise")
+                             "items into channels and run grouped convs; "
+                             "identical math. Dispatches whose batch is "
+                             "not a multiple of g run unpacked")
         sp.add_argument("--core-impl", default="xla",
                         choices=("xla", "auto", "pallas"),
                         help="U-Net core route: xla (default) = the "
@@ -340,14 +341,11 @@ def _load_engine(args, allow_random: bool = False):
 
     from .infer.engine import InterpolationEngine
 
-    if (getattr(args, "core_pack", 1) or 1) > 1:
-        raise NotImplementedError(
-            "--core-pack above 1 is not ported (ROADMAP Queue A, the "
-            "remaining model options)")
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
     cfg = _model_config(args)
     kw = dict(compute_dtype=dtype, device=getattr(args, "device", None),
-              core_impl=getattr(args, "core_impl", None) or "xla")
+              core_impl=getattr(args, "core_impl", None) or "xla",
+              core_pack=getattr(args, "core_pack", 1) or 1)
     if os.path.exists(args.model) or args.model.endswith((".pth", ".pt")):
         return InterpolationEngine.from_checkpoint(args.model, cfg, **kw)
     if allow_random:

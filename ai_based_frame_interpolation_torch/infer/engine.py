@@ -5,9 +5,10 @@ uint8 NHWC frame pairs go in and come out, as in the JAX engine. Inside:
 normalize in the compute dtype, edge-pad to ``cfg.pad_multiple``, the model
 in NCHW, crop, round to uint8. The U-Net and tower families bisect; the
 flow family runs one motion pass and then samples each output time
-exactly, through the ``sample_fused`` and ``refine_head`` CUDA kernels on
-the card. PyTorch runs eagerly, so the JAX engine's per-shape compile
-cache becomes a cache of pair functions.
+exactly, through the ``sample_fused`` kernel where the config is the
+single-field shifts warp (stock PyTorch warps otherwise) and the
+``refine_head`` kernel on the card. PyTorch runs eagerly, so the JAX
+engine's per-shape compile cache becomes a cache of pair functions.
 
 Video streams (``interpolate_video_frames``, ``retime_video_frames`` and
 their ``_file`` forms) batch consecutive pairs, assemble the output on
@@ -18,6 +19,7 @@ before they drain batch k (``_Transfers``).
 from __future__ import annotations
 
 import math
+import re
 import time
 from typing import Iterable, Iterator, List, Mapping, Optional, Sequence
 
@@ -27,7 +29,7 @@ import torch
 from ..config import ModelConfig
 from ..models import build_model, core_t
 from ..models.bridge import flax_to_state_dict
-from ..models.unet import fold_batchnorm
+from ..models.unet import fold_batchnorm, tile_params_packed
 from ..ops import native, warp_fused
 from ..ops.image import denormalize_to_uint8, normalize_uint8
 from ..ops.resize import crop_to, pad_to_multiple
@@ -59,8 +61,10 @@ def _bisect(fwd, model, x1, x2, depth: int) -> List[torch.Tensor]:
 def _init_weights(model: torch.nn.Module, generator: torch.Generator) -> None:
     """Flax's default init drawn from ``generator``: LeCun-normal conv
     kernels (normal truncated at 2 sigma, rescaled to variance 1/fan_in),
-    zero biases, BatchNorm scale 1, bias 0, mean 0, var 1."""
-    for m in model.modules():
+    zero biases, BatchNorm scale 1, bias 0, mean 0, var 1; the flow
+    cascade's out convs (``cascade{k}_out``) zero, as the Flax model
+    initialises them."""
+    for name, m in model.named_modules():
         if isinstance(m, (torch.nn.Conv2d, torch.nn.ConvTranspose2d)):
             w = m.weight
             fan_in = w[0].numel() if isinstance(m, torch.nn.Conv2d) \
@@ -68,6 +72,8 @@ def _init_weights(model: torch.nn.Module, generator: torch.Generator) -> None:
             std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
             torch.nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std,
                                         generator=generator)
+            if re.fullmatch(r"cascade\d+_out", name):
+                torch.nn.init.zeros_(w)
             if m.bias is not None:
                 torch.nn.init.zeros_(m.bias)
         elif isinstance(m, torch.nn.BatchNorm2d):
@@ -164,12 +170,23 @@ class InterpolationEngine:
     the option core against 1072.3 on the default route at b8 1080p gray
     2x, and 1225.0 against 1079.6 at b32 (``PERF.md``). The route may be
     assigned after construction (:attr:`core_impl`).
+
+    ``core_pack`` g > 1 runs the U-Net family's core with g batch items
+    folded into the channels (grouped convs over weights repeated per
+    group, ``models/unet.py``; built once, on the device, at the first
+    packed dispatch), as the JAX engine's ``core_pack``: for the bilinear
+    decoder and folded weights, on dispatches whose batch is a multiple of
+    g while ``max_dispatch_batch`` is too (:meth:`_use_pack`); other
+    dispatches run unpacked. A packed dispatch never takes the option
+    core: ``"auto"`` leaves it on cuDNN, ``"pallas"`` raises. The JAX
+    package packs to fill the TPU's 128 lanes; what it gains on the card is
+    measured, not assumed (``PERF.md``).
     """
 
     def __init__(self, model: torch.nn.Module,
                  state: Optional[Mapping[str, torch.Tensor]] = None,
                  compute_dtype=torch.bfloat16, fold: bool = True,
-                 device=None, core_impl: str = "xla"):
+                 device=None, core_impl: str = "xla", core_pack: int = 1):
         self.device = resolve_device(device)
         cfg = model.cfg
         state = dict(state if state is not None else model.state_dict())
@@ -183,6 +200,7 @@ class InterpolationEngine:
         self.model.pack_head()          # the head kernel's weight layouts
         self.cfg: ModelConfig = cfg
         self.compute_dtype = compute_dtype
+        self.core_pack = int(core_pack or 1)
         self.core_impl = core_impl
         # Cap on the batch one dispatch sees (None = off); larger batches
         # run as sequential chunks, concatenated on the device.
@@ -222,7 +240,7 @@ class InterpolationEngine:
     @classmethod
     def random_init(cls, cfg: Optional[ModelConfig] = None, seed: int = 0,
                     compute_dtype=torch.bfloat16, fold: bool = True,
-                    device=None, core_impl: str = "xla"
+                    device=None, core_impl: str = "xla", core_pack: int = 1
                     ) -> "InterpolationEngine":
         """Engine with random weights from ``seed`` (plumbing and speed
         runs). The numbers differ from JAX's for the same seed."""
@@ -230,13 +248,13 @@ class InterpolationEngine:
         model = build_model(cfg, compute_dtype)
         _init_weights(model, torch.Generator().manual_seed(seed))
         return cls(model, None, compute_dtype, fold=fold, device=device,
-                   core_impl=core_impl)
+                   core_impl=core_impl, core_pack=core_pack)
 
     @classmethod
     def from_checkpoint(cls, path: str, cfg: Optional[ModelConfig] = None,
                         compute_dtype=torch.bfloat16, fold: bool = True,
-                        device=None, core_impl: str = "xla"
-                        ) -> "InterpolationEngine":
+                        device=None, core_impl: str = "xla",
+                        core_pack: int = 1) -> "InterpolationEngine":
         """Engine over an inference export of the port's trainer
         (``train/checkpoint.py:save_variables``: ``variables.pt`` and
         ``model_config.json``) or a reference-format ``.pth`` (or ``.pt``;
@@ -261,19 +279,21 @@ class InterpolationEngine:
                 f"no checkpoint at {path} (expected a .pth file or a "
                 "directory with variables.pt, written by save_variables)")
         return cls(build_model(cfg, compute_dtype), variables, compute_dtype,
-                   fold=fold, device=device, core_impl=core_impl)
+                   fold=fold, device=device, core_impl=core_impl,
+                   core_pack=core_pack)
 
     @classmethod
     def from_flax_variables(cls, variables: Mapping, cfg: ModelConfig,
                             compute_dtype=torch.bfloat16, fold: bool = True,
-                            device=None, core_impl: str = "xla"
-                            ) -> "InterpolationEngine":
+                            device=None, core_impl: str = "xla",
+                            core_pack: int = 1) -> "InterpolationEngine":
         """Engine over a Flax variables tree given as numpy arrays
         (``models/bridge.py``)."""
         folded = not variables.get("batch_stats")
         model = build_model(cfg, compute_dtype, folded=folded)
         return cls(model, flax_to_state_dict(variables), compute_dtype,
-                   fold=fold, device=device, core_impl=core_impl)
+                   fold=fold, device=device, core_impl=core_impl,
+                   core_pack=core_pack)
 
     # -- the pair function --------------------------------------------------
 
@@ -284,17 +304,52 @@ class InterpolationEngine:
         return (self.cfg.arch == "unet" and model.folded and model.has_head
                 and self.cfg.refine_factor == 1)
 
+    def _use_pack(self, batch: int) -> bool:
+        """Whether a dispatch of ``batch`` items runs the packed core (JAX
+        ``_use_pack``): ``core_pack`` g > 1, the U-Net family, the bilinear
+        decoder, folded weights, ``batch`` and ``max_dispatch_batch``
+        multiples of g."""
+        g = self.core_pack
+        if g <= 1 or self.cfg.arch != "unet" or not self.cfg.bilinear \
+                or not self.model.folded:
+            return False
+        limit = self.max_dispatch_batch
+        return not (limit and limit % g) and batch % g == 0
+
+    def _packed_core(self) -> torch.nn.Module:
+        """The ``pack=core_pack`` model on the engine's weights, built once
+        (the repeated weights made on the device) and cached."""
+        key = ("packed_core", self.core_pack)
+        if key not in self._fn_cache:
+            with torch.device("meta"):
+                model = build_model(self.cfg, self.compute_dtype,
+                                    folded=True, pack=self.core_pack)
+            model.load_state_dict(tile_params_packed(
+                self.model.state_dict(), self.core_pack), assign=True)
+            model = model.eval().requires_grad_(False)
+            model.pack_head()
+            self._fn_cache[key] = model
+        return self._fn_cache[key]
+
     def _core_t_ok(self, x: torch.Tensor) -> bool:
         """Whether ``_forward`` takes the option core for padded NCHW
-        frames ``x``: never under ``"xla"``; under ``"auto"`` on the card
-        where ``core_t.eligible`` holds; always under ``"pallas"``, which
-        raises where the core does not apply."""
+        frames ``x``: never under ``"xla"`` nor for a packed dispatch;
+        under ``"auto"`` on the card where ``core_t.eligible`` holds;
+        always under ``"pallas"``, which raises where the core does not
+        apply or the dispatch packs."""
         if self.core_impl == "xla":
             return False
-        ok = self._core_applies() and core_t.eligible(
+        packed = self._use_pack(int(x.shape[0]))
+        ok = not packed and self._core_applies() and core_t.eligible(
             self.cfg, int(x.shape[-2]), int(x.shape[-1]))
         if self.core_impl == "auto":
             return ok and x.is_cuda
+        if packed:
+            raise ValueError(
+                f"core_impl='pallas' and core_pack={self.core_pack}: a "
+                f"batch of {int(x.shape[0])} runs the packed core, which "
+                "the option core does not take; pass core_pack=1 or "
+                "core_impl='auto'")
         if not ok:
             raise ValueError(
                 f"core_impl='pallas': the option core does not take this "
@@ -307,6 +362,8 @@ class InterpolationEngine:
         if self._core_t_ok(x1):
             y = core_t.forward_pre_refine(model, x1, x2)
             return model.refine(y, x1, x2).to(self.compute_dtype)
+        if self._use_pack(int(x1.shape[0])):
+            model = self._packed_core()
         return model(x1, x2).to(self.compute_dtype)
 
     def _pair_fn(self, n_out: int, depth: int):
@@ -339,10 +396,15 @@ class InterpolationEngine:
                                self.cfg.pad_multiple)
 
     def _flow_sample(self, model, x1, x2, flow, mask, t):
-        """One sample at times ``t`` [B] from a precomputed field: the
-        sampler, then the head (on the card the ``sample_fused`` and
-        ``refine_head`` kernels, which launch or raise)."""
-        if not warp_fused.eligible(self.cfg, x1.permute(0, 2, 3, 1).shape):
+        """One sample at times ``t`` [B] from a precomputed field, routed as
+        the JAX engine routes it, from the config: where the sampler
+        computes the config's warps (``warp_fused.config_eligible``), the
+        ``sample_fused`` kernel, else the model's stock PyTorch warps and
+        blend; then the ``refine_head`` kernel. On the card the kernels
+        launch or raise; a frame shape the sampler does not take raises
+        ``ValueError``."""
+        if warp_fused.config_eligible(self.cfg) and not warp_fused.eligible(
+                self.cfg, x1.permute(0, 2, 3, 1).shape):
             raise ValueError(f"the flow sampler does not take frames of "
                              f"shape {tuple(x1.shape)} (NCHW)")
         return model.sample(x1, x2, flow, mask, t)

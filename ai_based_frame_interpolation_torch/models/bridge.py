@@ -8,9 +8,9 @@ PyTorch's does); BatchNorm ``scale/bias/mean/var`` become
 ``weight/bias/running_mean/running_var``. The three families map: the
 U-Net family (``unet/...``, the heads), the tower family
 (``encoder/{inc,down*}/...``, ``decoder/up*/...``, ``decoder/proj*``,
-``decoder/outc`` and the heads) and the flow family's single-field model
-(``motion_unet/...`` and its head). Any other key raises ``KeyError``, the
-flow cascade's ``cascade{k}_*`` among them until the cascade is ported.
+``decoder/outc`` and the heads) and the flow family (``motion_unet/...``,
+its head and the cascade's ``cascade{k}_1``, ``cascade{k}_2`` and
+``cascade{k}_out``). Any other key raises ``KeyError``.
 """
 
 from __future__ import annotations
@@ -21,7 +21,8 @@ from typing import Dict, Mapping, Tuple
 import numpy as np
 import torch
 
-_TOP = ("refine1", "refine2", "refine_out", "refine2_dw", "refine2_pw")
+_TOP = re.compile(r"^(refine1|refine2|refine_out|refine2_dw|refine2_pw"
+                  r"|cascade\d+_(1|2|out))$")
 _UNET_BLOCK = re.compile(r"^(inc|outc|down\d+|up\d+)$")
 _INNER = ("conv", "conv1", "conv2", "bn1", "bn2", "up")
 _BACKBONES = ("unet", "motion_unet")     # U-Net family, flow family
@@ -30,7 +31,7 @@ _TOWER = re.compile(r"^((encoder/(inc|down\d+)|decoder/up\d+)/(conv|bn)[12]"
 
 
 def _check_path(path: Tuple[str, ...]) -> None:
-    ok = (len(path) == 1 and path[0] in _TOP) or (
+    ok = (len(path) == 1 and bool(_TOP.match(path[0]))) or (
         len(path) >= 2 and path[0] in _BACKBONES
         and _UNET_BLOCK.match(path[1])
         and all(p in _INNER for p in path[2:])) or \

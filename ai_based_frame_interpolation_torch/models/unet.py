@@ -20,6 +20,16 @@ which also updates the running ones (:func:`batch_norm`), and the head
 as the model's own convs under autograd (:meth:`RefineHead.head_train`),
 since no kernel has a backward.
 
+Two inference options of the JAX model are here too. ``pack = g > 1``
+(the engine's ``core_pack``) folds g batch items into the channel axis
+(:func:`pack_batch`) and runs every U-Net conv as a grouped conv
+(``groups=g``) over weights repeated per group (:func:`tile_params_packed`):
+the same per-item math, for folded weights and the bilinear decoder; the
+residual is added packed and the head runs unpacked. ``UP_POLYPHASE``
+(module-level, off as in JAX) fuses the half-pixel upsample into each Up
+block's first conv (``ops/polyphase.py``) where the skip is exactly twice
+the low map; the parameters and ``state_dict`` keys stay the same.
+
 Importing this module turns TF32 off for cuDNN convolutions and CUDA
 matmuls: PyTorch runs f32 convolutions in TF32 by default, and the f32
 convs here (``outc``, ``refine_out``, the whole f32 engine) are meant to be
@@ -35,6 +45,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..config import ModelConfig
+from ..ops.polyphase import up2_conv_half_pixel
 from ..ops.refine import (pack_head_weights, refine_head,
                           refine_head_reference)
 from ..ops.resize import upsample2x_align_corners, upsample2x_half_pixel
@@ -45,6 +56,10 @@ torch.backends.cuda.matmul.allow_tf32 = False
 BN_EPS = 1e-5
 # Flax's BatchNorm momentum: running = 0.9 * running + 0.1 * batch
 BN_MOMENTUM = 0.9
+# Fuse the half-pixel decoder upsample into the Up block's first conv
+# (ops/polyphase.py). Off by default, as in the JAX package, where it
+# measured slower; module-level so a run can flip it in-process.
+UP_POLYPHASE = False
 
 
 def space_to_depth(x: torch.Tensor, r: int) -> torch.Tensor:
@@ -77,6 +92,35 @@ def conv(x: torch.Tensor, m: nn.Conv2d, dtype) -> torch.Tensor:
     return y
 
 
+def pack_batch(x: torch.Tensor, g: int) -> torch.Tensor:
+    """[B,C,H,W] -> [B/g,g*C,H,W]: g batch items folded into the channel
+    axis, item-major (JAX ``pack_batch``'s channel order)."""
+    if g == 1:
+        return x
+    b, c, h, w = x.shape
+    return x.reshape(b // g, g * c, h, w)
+
+
+def unpack_batch(x: torch.Tensor, g: int) -> torch.Tensor:
+    """Inverse of :func:`pack_batch`."""
+    if g == 1:
+        return x
+    b, gc, h, w = x.shape
+    return x.reshape(b * g, gc // g, h, w)
+
+
+def grouped_concat(parts, g: int) -> torch.Tensor:
+    """Channel concat per pack group: each part [B,g*c_i,H,W]; group i of
+    the result holds ``[p0_i, p1_i, ...]``, what a ``groups=g`` conv
+    takes. With g = 1 a plain concat (the unpacked model's, unchanged: a
+    5-D concat measured 2% slower at b32 1080p on the card)."""
+    if g == 1:
+        return torch.cat(parts, 1)
+    b, _, h, w = parts[0].shape
+    return torch.cat([p.reshape(b, g, -1, h, w) for p in parts],
+                     2).reshape(b, -1, h, w)
+
+
 def batch_norm(x: torch.Tensor, bn: nn.BatchNorm2d,
                train: bool = False) -> torch.Tensor:
     """``bn`` applied to NCHW ``x`` in f32, as Flax's ``BatchNorm(dtype=f32,
@@ -104,26 +148,43 @@ def batch_norm(x: torch.Tensor, bn: nn.BatchNorm2d,
 
 class DoubleConv(nn.Module):
     """(3x3 conv -> BatchNorm -> ReLU) x 2; with ``folded`` the BatchNorm
-    is pre-multiplied into each conv, which then has a bias."""
+    is pre-multiplied into each conv, which then has a bias. With ``pack``
+    g > 1 (folded only) each conv is grouped, over g packed items."""
 
     def __init__(self, in_ch: int, out_ch: int, mid_ch: Optional[int] = None,
-                 folded: bool = False):
+                 folded: bool = False, pack: int = 1):
         super().__init__()
+        if pack > 1 and not folded:
+            raise ValueError("pack > 1 requires folded BatchNorm "
+                             "(inference-only layout)")
         mid = mid_ch if mid_ch is not None else out_ch
         self.folded = folded
-        self.conv1 = nn.Conv2d(in_ch, mid, 3, padding=1, bias=folded)
-        self.conv2 = nn.Conv2d(mid, out_ch, 3, padding=1, bias=folded)
+        self.pack = pack
+        self.conv1 = nn.Conv2d(in_ch * pack, mid * pack, 3, padding=1,
+                               bias=folded, groups=pack)
+        self.conv2 = nn.Conv2d(mid * pack, out_ch * pack, 3, padding=1,
+                               bias=folded, groups=pack)
         if not folded:
             self.bn1 = nn.BatchNorm2d(mid, eps=BN_EPS)
             self.bn2 = nn.BatchNorm2d(out_ch, eps=BN_EPS)
 
-    def forward(self, x: torch.Tensor, cdt, train: bool = False
-                ) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, cdt, train: bool = False,
+                poly_low: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``poly_low``: the Up block's low map, with ``x`` its skip; the
+        first conv is then ``up2_conv_half_pixel`` (``UP_POLYPHASE``)."""
         if train and self.folded:
             raise ValueError("folded BatchNorm is inference-only; train the "
                              "unfolded model")
+        if poly_low is not None and self.pack > 1:
+            raise ValueError("poly_low (the fused up2 + conv) is "
+                             "incompatible with pack > 1")
         for i in (1, 2):
-            x = conv(x, getattr(self, f"conv{i}"), cdt)
+            m = getattr(self, f"conv{i}")
+            if i == 1 and poly_low is not None:
+                x = up2_conv_half_pixel(poly_low, x, m.weight, m.bias,
+                                        cdt).to(cdt)
+            else:
+                x = conv(x, m, cdt)
             if not self.folded:
                 x = batch_norm(x, getattr(self, f"bn{i}"), train)
             x = F.relu(x).to(cdt)
@@ -133,9 +194,10 @@ class DoubleConv(nn.Module):
 class Down(nn.Module):
     """2x2 max-pool then DoubleConv."""
 
-    def __init__(self, in_ch: int, out_ch: int, folded: bool = False):
+    def __init__(self, in_ch: int, out_ch: int, folded: bool = False,
+                 pack: int = 1):
         super().__init__()
-        self.conv = DoubleConv(in_ch, out_ch, folded=folded)
+        self.conv = DoubleConv(in_ch, out_ch, folded=folded, pack=pack)
 
     def forward(self, x: torch.Tensor, cdt, train: bool = False
                 ) -> torch.Tensor:
@@ -144,20 +206,28 @@ class Down(nn.Module):
 
 class Up(nn.Module):
     """x2 upsample of the low-resolution input, zero pad to the skip's size
-    (floor of the difference leading), concat ``[skip, up]``, DoubleConv."""
+    (floor of the difference leading), concat ``[skip, up]`` (per pack
+    group), DoubleConv. With ``UP_POLYPHASE``, the half-pixel decoder, no
+    pack and a skip exactly twice the low map: the upsample fused into the
+    first conv."""
 
     def __init__(self, low_ch: int, skip_ch: int, out_ch: int,
                  bilinear: bool = True, upsample: str = "align_corners",
-                 folded: bool = False):
+                 folded: bool = False, pack: int = 1):
         super().__init__()
         if upsample not in ("align_corners", "half_pixel"):
             raise ValueError(f"unknown upsample mode {upsample!r}")
         self.bilinear = bilinear
         self.upsample = upsample
+        self.pack = pack
         if bilinear:
             in_ch = low_ch + skip_ch
-            self.conv = DoubleConv(in_ch, out_ch, in_ch // 2, folded=folded)
+            self.conv = DoubleConv(in_ch, out_ch, in_ch // 2, folded=folded,
+                                   pack=pack)
         else:
+            if pack > 1:
+                raise ValueError("pack > 1 supports the bilinear decoder "
+                                 "only")
             self.up = nn.ConvTranspose2d(low_ch, low_ch // 2, 2, stride=2)
             self.conv = DoubleConv(low_ch // 2 + skip_ch, out_ch,
                                    folded=folded)
@@ -169,6 +239,10 @@ class Up(nn.Module):
                                     stride=2)
             x1 = x1 + self.up.bias.to(cdt).view(1, -1, 1, 1)
         elif self.upsample == "half_pixel":
+            if (UP_POLYPHASE and self.pack == 1
+                    and x2.shape[-2] == 2 * x1.shape[-2]
+                    and x2.shape[-1] == 2 * x1.shape[-1]):
+                return self.conv(x2, cdt, train, poly_low=x1)
             x1 = upsample2x_half_pixel(x1)
         else:
             x1 = upsample2x_align_corners(x1)
@@ -176,27 +250,31 @@ class Up(nn.Module):
         dw = x2.shape[-1] - x1.shape[-1]
         if dh or dw:
             x1 = F.pad(x1, (dw // 2, dw - dw // 2, dh // 2, dh - dh // 2))
-        return self.conv(torch.cat([x2, x1.to(x2.dtype)], 1), cdt, train)
+        return self.conv(grouped_concat([x2, x1.to(x2.dtype)], self.pack),
+                         cdt, train)
 
 
 class UNet(nn.Module):
     """Encoder-decoder U-Net: widths ``base_width * 2**i``, the bottleneck
-    and decoder halved when ``bilinear``, f32 1x1 output conv."""
+    and decoder halved when ``bilinear``, f32 1x1 output conv; every conv
+    grouped over ``pack`` items."""
 
     def __init__(self, in_channels: int = 2, out_channels: int = 1,
                  base_width: int = 64, depth: int = 4, bilinear: bool = True,
-                 folded: bool = False, upsample: str = "align_corners"):
+                 folded: bool = False, upsample: str = "align_corners",
+                 pack: int = 1):
         super().__init__()
         w = base_width
         factor = 2 if bilinear else 1
         self.depth = depth
-        self.inc = DoubleConv(in_channels, w, folded=folded)
+        self.inc = DoubleConv(in_channels, w, folded=folded, pack=pack)
         skip_ch = [w]
         for i in range(1, depth + 1):
             ch = w * 2 ** i
             if i == depth:
                 ch //= factor
-            setattr(self, f"down{i}", Down(skip_ch[-1], ch, folded=folded))
+            setattr(self, f"down{i}", Down(skip_ch[-1], ch, folded=folded,
+                                           pack=pack))
             skip_ch.append(ch)
         y_ch = skip_ch[-1]
         for i in range(1, depth + 1):
@@ -205,9 +283,10 @@ class UNet(nn.Module):
                 ch //= factor
             setattr(self, f"up{i}", Up(y_ch, skip_ch[depth - i], ch,
                                        bilinear=bilinear, upsample=upsample,
-                                       folded=folded))
+                                       folded=folded, pack=pack))
             y_ch = ch
-        self.outc = nn.Conv2d(y_ch, out_channels, 1)
+        self.outc = nn.Conv2d(y_ch * pack, out_channels * pack, 1,
+                              groups=pack)
 
     def forward(self, x: torch.Tensor, cdt, train: bool = False
                 ) -> torch.Tensor:
@@ -295,13 +374,15 @@ class FrameInterpolationUNet(RefineHead, nn.Module):
     space-to-depth stem, residual midpoint and refinement head."""
 
     def __init__(self, cfg: ModelConfig = ModelConfig(),
-                 compute_dtype=torch.bfloat16, folded: bool = False):
+                 compute_dtype=torch.bfloat16, folded: bool = False,
+                 pack: int = 1):
         super().__init__()
         self.cfg = cfg
         self.compute_dtype = compute_dtype
         self.folded = folded
+        self.pack = pack
         self.unet = UNet(cfg.in_channels, cfg.out_channels, cfg.base_width,
-                         cfg.depth, cfg.bilinear, folded, cfg.upsample)
+                         cfg.depth, cfg.bilinear, folded, cfg.upsample, pack)
         r, g = cfg.space_to_depth, cfg.refine_factor
         self.has_head = cfg.refine_width > 0 and r > 1
         if self.has_head:
@@ -337,21 +418,24 @@ class FrameInterpolationUNet(RefineHead, nn.Module):
                 ) -> torch.Tensor:
         """``skip_refine=True`` returns the f32 pre-refine prediction at full
         resolution, for a caller that applies the head itself; ``train``
-        as the module docstring says."""
-        cfg, cdt = self.cfg, self.compute_dtype
+        as the module docstring says. With ``pack`` g > 1 the batch must be
+        a multiple of g."""
+        cfg, cdt, g = self.cfg, self.compute_dtype, self.pack
         r = cfg.space_to_depth
         f1 = space_to_depth(frame1, r)
         f2 = space_to_depth(frame2, r)
-        x = torch.cat([f1, f2], 1)
+        p1, p2 = pack_batch(f1, g), pack_batch(f2, g)
+        x = grouped_concat([p1, p2], g)
         if cfg.time_conditioned:
             b, _, h, w = x.shape
             if t is None:
-                t = torch.full((b,), 0.5, dtype=x.dtype, device=x.device)
-            tmap = t.to(x.dtype).view(b, 1, 1, 1).expand(b, 1, h, w)
-            x = torch.cat([x, tmap], 1)
+                t = torch.full((b * g,), 0.5, dtype=x.dtype, device=x.device)
+            tmap = t.to(x.dtype).view(b, g, 1, 1).expand(b, g, h, w)
+            x = grouped_concat([x, tmap], g)
         y = self.unet(x, cdt, train)
         if cfg.residual:
-            y = y + 0.5 * (f1 + f2).to(y.dtype)
+            y = y + 0.5 * (p1 + p2).to(y.dtype)
+        y = unpack_batch(y, g)
         if not self.has_head or skip_refine:
             return depth_to_space(y, r)
         g = cfg.refine_factor
@@ -362,6 +446,19 @@ class FrameInterpolationUNet(RefineHead, nn.Module):
 def count_parameters(model: nn.Module) -> int:
     """Trainable parameter count (BatchNorm running stats excluded)."""
     return sum(p.numel() for p in model.parameters())
+
+
+def tile_params_packed(state: dict, g: int) -> dict:
+    """The state dict of the ``pack=g`` model from a folded one (JAX
+    ``tile_params_packed``): each ``unet.*`` weight repeated g times along
+    its output channels and each bias g times, so group i of every grouped
+    conv applies the per-item weights; the head stays as it is. The
+    repeats are made where the tensors are (the card, for an engine)."""
+    if any(k.endswith("running_var") for k in state):
+        raise ValueError("tile_params_packed expects folded weights (run "
+                         "fold_batchnorm first)")
+    return {k: (v.repeat(g, *[1] * (v.dim() - 1)) if k.startswith("unet.")
+                else v) for k, v in state.items()}
 
 
 def fold_batchnorm(state: dict) -> dict:

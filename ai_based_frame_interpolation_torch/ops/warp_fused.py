@@ -30,15 +30,21 @@ from . import _build
 from .warp import backward_warp
 
 
+def config_eligible(cfg) -> bool:
+    """Whether the sampler computes this config's warps: the single-field
+    shifts warp (the cascade's stages run before it and do not change
+    that). The bidirectional field and the other warps are sampled in stock
+    PyTorch (``models/flow.py:sample_parts``), as JAX samples them in XLA."""
+    return not cfg.flow_bidir and cfg.warp_impl == "shifts"
+
+
 def eligible(cfg, channels_last_shape) -> bool:
     """Whether the sampler (kernel or plain) serves this config and frame
-    shape: the single-field shifts warp of gray or RGB frames of at least
-    2x2 pixels. The kernel reads its taps directly, so it has no width
-    bound (the JAX kernel's lane padding needs ``W >= 2*max_flow + 2``)."""
+    shape: :func:`config_eligible`, gray or RGB frames of at least 2x2
+    pixels. The kernel reads its taps directly, so it has no width bound
+    (the JAX kernel's lane padding needs ``W >= 2*max_flow + 2``)."""
     h, w, c = channels_last_shape[-3:]
-    return (not cfg.flow_bidir and cfg.flow_cascade == 0
-            and cfg.warp_impl == "shifts" and c in (1, 3)
-            and h >= 2 and w >= 2)
+    return config_eligible(cfg) and c in (1, 3) and h >= 2 and w >= 2
 
 
 def sample_fused_reference(f1: torch.Tensor, f2: torch.Tensor,

@@ -163,11 +163,13 @@ def _loss_and_updates(model: torch.nn.Module, batch: Mapping[str, torch.Tensor],
         loss = loss + loss_cfg.flow_smooth_weight * flow_smoothness(
             flow, 0.5 * (f0 + f1), loss_cfg.flow_smooth_edge)
     if loss_cfg.flow_photo_weight > 0 and flow is not None:
-        # the t=1 field (-F01 for the single field) carries f0 onto f1, the
-        # t=0 field F01 carries f1 onto f0: the sampler's own endpoints,
-        # warped exactly (gather4), as JAX does
-        f01 = flow.float()
-        r1 = backward_warp(f0, -f01, impl="gather4")
+        # the t=1 field (F10, or -F01 for the single field) carries f0 onto
+        # f1, the t=0 field F01 carries f1 onto f0: the sampler's own
+        # endpoints, warped exactly (gather4), as JAX does
+        fl = flow.float()
+        f01 = fl[..., :2]
+        f10 = fl[..., 2:4] if fl.shape[-1] == 4 else -f01
+        r1 = backward_warp(f0, f10, impl="gather4")
         r0 = backward_warp(f1, f01, impl="gather4")
         loss = loss + loss_cfg.flow_photo_weight * (
             torch.mean(torch.abs(r1 - f1)) + torch.mean(torch.abs(r0 - f0)))

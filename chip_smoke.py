@@ -150,11 +150,27 @@ Drives the port only (it imports nothing of JAX or of the JAX package):
    ai_based_frame_interpolation_torch serve`` as a subprocess on port 0:
    its "serving on" line read, one ``/interpolate-frames`` and one
    ``/health`` sent, SIGTERM, exit code 0.
+11. drives the model options (after 5 frees the engines), on 8 gray
+   1080p pairs: the flow production config with ``flow_bidir``,
+   ``flow_cascade=1``, ``flow_cascade=2`` with ``flow_bidir``, and the
+   ``pyramid``, ``gather4`` and ``patch`` warps (random weights from a
+   seed, the cascade's out convs drawn too), each at 2x (b8) and through
+   ``interpolate_at`` at 0.25 and 0.6, within 1 LSB of the same modules
+   composed with the plain head (and the plain sampler where the config
+   takes it), one ``refine_head`` launch per sample and one
+   ``sample_fused`` launch per sample for the single-field cascade only,
+   ``patch`` bit for bit ``gather4``; then the production U-Net with
+   ``core_pack`` 2 and 4 (within 1 LSB of the unpacked engine, 1 head
+   launch and no double conv a dispatch, one packed dispatch counted; a
+   b6 batch at g=4 unpacked, bit for bit) and with ``UP_POLYPHASE`` (within
+   1 LSB of the lerp path); each engine timed at b8 (``time_engine``, 5
+   calls) and printed beside phase 5's production flow engine and the
+   card's name and power limit.
 
 Besides each kernel's launch counter, the wrappers that pick a route
 (``refine_head``, ``double_conv_fused``, ``up_double_conv_fused``) count
 their launches under it (``.routes``); the kernels line reads those counts
-over the main-path runs of phases 3, 4, 6, 7, 8, 9 and 10.
+over the main-path runs of phases 3, 4 and 6-11.
 
 Any failure raises and exits non-zero. It prints the kernel record as one
 JSON line before the last, and as the last line
@@ -876,14 +892,16 @@ def reference_midpoints(engine, f1, f2, core=False) -> torch.Tensor:
 
 def reference_flow(engine, f1, f2, ts) -> torch.Tensor:
     """The flow engine's samples at times ``ts`` composed from the same
-    port modules with the plain sampler and head, for the check only."""
+    port modules with the plain sampler and head, for the check only (for
+    a config the sampler does not compute, the model's own stock PyTorch
+    warps and blend, which is what the engine runs there)."""
     from ai_based_frame_interpolation_torch.ops.image import (
         denormalize_to_uint8)
     from ai_based_frame_interpolation_torch.ops.refine import (
         refine_head_reference)
     from ai_based_frame_interpolation_torch.ops.resize import crop_to
     from ai_based_frame_interpolation_torch.ops.warp_fused import (
-        sample_fused_reference)
+        config_eligible, sample_fused_reference)
 
     cdt, model = engine.compute_dtype, engine.model
     nhwc = lambda x: x.permute(0, 2, 3, 1)  # noqa: E731
@@ -895,9 +913,13 @@ def reference_flow(engine, f1, f2, ts) -> torch.Tensor:
         for t in ts:
             tt = torch.full((x1.shape[0],), t, dtype=torch.float32,
                             device=x1.device)
-            out, g0, g1 = sample_fused_reference(
-                nhwc(x1), nhwc(x2), nhwc(flow), nhwc(mask), tt,
-                engine.cfg.max_flow)
+            if config_eligible(engine.cfg):
+                out, g0, g1 = sample_fused_reference(
+                    nhwc(x1), nhwc(x2), nhwc(flow), nhwc(mask), tt,
+                    engine.cfg.max_flow)
+            else:       # the bidirectional field, the other warps: no kernel
+                out, g0, g1 = (nhwc(p) for p in model.sample_parts(
+                    x1, x2, flow, mask, tt))
             y = refine_head_reference(out, (g0, g1, nhwc(x1), nhwc(x2)),
                                       model.head_params(), cdt)
             outs.append(crop_to(y.permute(0, 3, 1, 2), hw))
@@ -1368,6 +1390,199 @@ def flow_path(record):
     record["flow_requests"] = serve_requests(engine, seed=4)
     assert record["flow_requests"]["launches"]["sample_fused"] > 0
     return engine, launches
+
+
+# phase 11: the flow production config with each model option, and the
+# production U-Net with core_pack and UP_POLYPHASE
+OPTION_FLOWS = {
+    "bidir": dict(flow_bidir=True),
+    "cascade1": dict(flow_cascade=1),          # single field, shifts
+    "bidir_cascade2": dict(flow_bidir=True, flow_cascade=2),
+    "pyramid": dict(warp_impl="pyramid"),
+    "gather4": dict(warp_impl="gather4"),
+    "patch": dict(warp_impl="patch"),
+}
+OPTION_TIMES = [0.25, 0.6]
+OPTION_TIMED = ((8, 5),)       # one checked call, then 1 + 5 timed ones
+
+
+def drawn_cascade(model, seed) -> None:
+    """Draw each cascade stage's out conv (normal, std 0.01) from ``seed``:
+    ``random_init`` starts it at zero, as the Flax model does, which would
+    leave the field unchanged by the stages in the checks and timings."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, m in model.named_modules():
+            if re.fullmatch(r"cascade\d+_out", name):
+                m.weight.copy_(0.01 * torch.randn(m.weight.shape,
+                                                  generator=gen))
+
+
+def max_diff(got, want) -> tuple:
+    """(max uint8 difference, share of values that differ)."""
+    d = np.abs(got.astype(np.int16) - want.astype(np.int16))
+    return int(d.max()), float((d > 0).mean())
+
+
+def option_flow(name, extra, f1, f2, smi) -> tuple:
+    """One flow option engine: 2x at b8 and ``interpolate_at`` at
+    ``OPTION_TIMES`` on one pair, each with the counts set to 0 just before
+    and read just after, within 1 LSB of the plain composition; then
+    timed. Returns (its record, the 2x and interpolate_at outputs)."""
+    from ai_based_frame_interpolation_torch.config import ModelConfig
+    from ai_based_frame_interpolation_torch.infer.engine import (
+        InterpolationEngine)
+    from ai_based_frame_interpolation_torch.ops.warp_fused import (
+        config_eligible)
+
+    cfg = ModelConfig(**dict(FLOW_PROD, **extra))
+    engine = InterpolationEngine.random_init(cfg, seed=0)
+    drawn_cascade(engine.model, seed=5)
+    fused = int(config_eligible(cfg))
+    rec = {"sampler_kernel": bool(fused)}
+    reset_counts()
+    out2x = engine.interpolate_batch(f1, f2)
+    rec["launches_2x"] = main_counts()
+    reset_counts()
+    out_at = np.stack(engine.interpolate_at(f1[0], f2[0], OPTION_TIMES))
+    rec["launches_at"] = main_counts()
+    for key, k in (("launches_2x", 1), ("launches_at", len(OPTION_TIMES))):
+        want = dict(NO_LAUNCHES, refine_head=k, sample_fused=k * fused)
+        assert rec[key] == want, \
+            f"flow option {name}: {key} {rec[key]}, not {want}"
+    assert out2x.shape == f1.shape and out2x.dtype == np.uint8
+    assert out_at.shape == (len(OPTION_TIMES), *f1.shape[1:])
+    want2x = reference_flow(engine, f1, f2, [0.5])[:, 0].cpu().numpy()
+    want_at = reference_flow(engine, f1[:1], f2[:1], OPTION_TIMES)[0]
+    rec["max_uint8_diff_2x"], rec["differing_2x"] = max_diff(out2x, want2x)
+    rec["max_uint8_diff_at"], rec["differing_at"] = max_diff(
+        out_at, want_at.cpu().numpy())
+    print(f"flow option {name}: 2x b=8 1080x1920 launches "
+          f"{rec['launches_2x']}, interpolate_at {OPTION_TIMES} launches "
+          f"{rec['launches_at']}; vs plain sampler and head: max uint8 diff "
+          f"{rec['max_uint8_diff_2x']} (differing "
+          f"{rec['differing_2x']:.6g}) and {rec['max_uint8_diff_at']}; mean "
+          f"output {float(out2x.mean()):.3f}", flush=True)
+    assert rec["max_uint8_diff_2x"] <= 1 and rec["max_uint8_diff_at"] <= 1
+    rec["timing"] = time_engine(engine, f"flow_{name}", smi,
+                                OPTION_TIMED)[f"flow_{name}_b8"]
+    return rec, (out2x, out_at)
+
+
+def unet_options(f1, f2, smi) -> dict:
+    """The production U-Net with ``core_pack`` 2 and 4 and with
+    ``UP_POLYPHASE``, each within 1 LSB of the unpacked lerp engine on the
+    same weights and frames, 1 head launch and no double conv a dispatch;
+    a b6 batch at g=4 runs unpacked (its packed dispatches counted); each
+    timed beside the unpacked engine."""
+    from ai_based_frame_interpolation_torch.config import ModelConfig
+    from ai_based_frame_interpolation_torch.infer.engine import (
+        InterpolationEngine)
+    from ai_based_frame_interpolation_torch.models import unet as unet_mod
+
+    one_head = dict(NO_LAUNCHES, refine_head=1)
+    base = InterpolationEngine.random_init(ModelConfig(**PROD), seed=0)
+    reset_counts()
+    ref = base.interpolate_batch(f1, f2)
+    out = {"default": {"launches": main_counts()}}
+    assert out["default"]["launches"] == one_head
+    out["default"]["timing"] = time_engine(base, "unet_default", smi,
+                                           OPTION_TIMED)["unet_default_b8"]
+    for g in (2, 4):
+        engine = InterpolationEngine.random_init(ModelConfig(**PROD), seed=0,
+                                                 core_pack=g)
+        packed = []
+        build_packed = engine._packed_core
+
+        def counted(build=build_packed, calls=packed):
+            calls.append(1)
+            return build()
+
+        engine._packed_core = counted
+        reset_counts()
+        got = engine.interpolate_batch(f1, f2)
+        rec = {"launches": main_counts(), "packed_dispatches": len(packed)}
+        rec["max_uint8_diff"], rec["differing"] = max_diff(got, ref)
+        print(f"U-Net core_pack={g}: b=8 1080x1920 launches "
+              f"{rec['launches']}, packed dispatches "
+              f"{rec['packed_dispatches']}; vs unpacked: max uint8 diff "
+              f"{rec['max_uint8_diff']}, differing {rec['differing']:.6g}",
+              flush=True)
+        assert rec["launches"] == one_head and len(packed) == 1
+        assert rec["max_uint8_diff"] <= 1
+        if g == 4:
+            reset_counts()
+            got6 = engine.interpolate_batch(f1[:6], f2[:6])
+            rec["b6"] = {"launches": main_counts(),
+                         "packed_dispatches": len(packed) - 1}
+            assert rec["b6"] == {"launches": one_head,
+                                 "packed_dispatches": 0}
+            assert np.array_equal(got6, base.interpolate_batch(f1[:6],
+                                                               f2[:6]))
+            print(f"U-Net core_pack=4 at b=6: unpacked, launches "
+                  f"{rec['b6']['launches']}, bit for bit the unpacked "
+                  "engine", flush=True)
+        rec["timing"] = time_engine(engine, f"unet_pack{g}", smi,
+                                    OPTION_TIMED)[f"unet_pack{g}_b8"]
+        out[f"core_pack_{g}"] = rec
+        del engine
+    try:
+        unet_mod.UP_POLYPHASE = True
+        reset_counts()
+        got = base.interpolate_batch(f1, f2)
+        rec = {"launches": main_counts()}
+        rec["max_uint8_diff"], rec["differing"] = max_diff(got, ref)
+        print(f"U-Net UP_POLYPHASE: b=8 1080x1920 launches "
+              f"{rec['launches']}; vs the lerp path: max uint8 diff "
+              f"{rec['max_uint8_diff']}, differing {rec['differing']:.6g}",
+              flush=True)
+        assert rec["launches"] == one_head and rec["max_uint8_diff"] <= 1
+        rec["timing"] = time_engine(base, "unet_polyphase", smi,
+                                    OPTION_TIMED)["unet_polyphase_b8"]
+    finally:
+        unet_mod.UP_POLYPHASE = False
+    out["up_polyphase"] = rec
+    return out
+
+
+def options_path(record, smi, flow_fps) -> dict:
+    """Phase 11: the flow production config with each of ``OPTION_FLOWS``
+    (``option_flow``; ``patch`` bit for bit ``gather4``), then the U-Net
+    options (``unet_options``); every output fps printed beside the card
+    and phase 5's production flow engine (``flow_fps``)."""
+    f1, f2 = frames(8, 1080, 1920, seed=1)
+    out = {"flow": {}, "launches": collections.Counter()}
+    outputs = {}
+    for name, extra in OPTION_FLOWS.items():
+        rec, result = option_flow(name, extra, f1, f2, smi)
+        out["flow"][name] = rec
+        for key in ("launches_2x", "launches_at"):
+            out["launches"]["refine_head_w16"] += rec[key]["refine_head"]
+            out["launches"]["sample_fused"] += rec[key]["sample_fused"]
+        if name in ("gather4", "patch"):
+            outputs[name] = result
+    assert all(np.array_equal(a, b) for a, b in zip(outputs["patch"],
+                                                    outputs["gather4"])), \
+        "the patch warp is not bit for bit the gather4 warp"
+    print("flow option patch: bit for bit gather4 (2x and interpolate_at)",
+          flush=True)
+    out["patch_equals_gather4"] = True
+    del outputs
+    out["unet"] = unet_options(f1, f2, smi)
+    for rec in out["unet"].values():
+        out["launches"]["refine_head_w64"] += rec["launches"]["refine_head"]
+        if "b6" in rec:
+            out["launches"]["refine_head_w64"] += \
+                rec["b6"]["launches"]["refine_head"]
+    flows, unets = (", ".join(f"{n} {r['timing']['output_fps']:.3f}"
+                              for n, r in out[k].items())
+                    for k in ("flow", "unet"))
+    print(f"[{smi}] model options, output fps at b8 1080p gray 2x: flow "
+          f"production (phase 5) {flow_fps:.3f}; {flows}. U-Net {unets}",
+          flush=True)
+    out["launches"] = dict(out["launches"])
+    record["options"] = out
+    return out
 
 
 @contextlib.contextmanager
@@ -3252,6 +3467,8 @@ def main() -> int:
               f"profiled call of {run['profiled_call_ms']:.3f} ms",
               flush=True)
     record["timings"] = timings
+    # 11. the model options, after 5 freed the other engines
+    options = options_path(record, smi, timings["flow_b8"]["output_fps"])
     record["seconds"] = time.perf_counter() - t_start
 
     src = "ai_based_frame_interpolation_torch/csrc/"
@@ -3267,19 +3484,22 @@ def main() -> int:
              + video_routes["refine_head w64/w64/bfloat16"]
              + val_launches["refine_head"]
              + train["export"]["launches"]["refine_head"]
-             + served["refine_head_w64"],
+             + served["refine_head_w64"]
+             + options["launches"]["refine_head_w64"],
              record["refine_head_w64_max_abs_err"],
              "refine_head_w64_1088x1920"),
             ("refine_head_w16", "refine_head.cu", "refine_fused.py:417",
              flow_launches["refine_head"]
              + video_routes["refine_head w16/w16/bfloat16"]
-             + flow_val["refine_head"] + served["refine_head_w16"],
+             + flow_val["refine_head"] + served["refine_head_w16"]
+             + options["launches"]["refine_head_w16"],
              record["refine_head_w16_max_abs_err"],
              "refine_head_w16_1088x1920"),
             ("sample_fused", "sample_fused.cu", "warp_fused.py:183",
              flow_launches["sample_fused"]
              + video["flow_retime_2.5"]["launches"]["sample_fused"]
-             + flow_val["sample_fused"] + served["sample_fused"],
+             + flow_val["sample_fused"] + served["sample_fused"]
+             + options["launches"]["sample_fused"],
              record["sample_fused_max_abs_err"], "sample_fused_1088x1920"),
             ("ssim_eval_256", "ssim_eval.cu", "ssim_fused.py:63",
              evals["unet_256"]["launches"]["ssim_eval"]

@@ -3,6 +3,9 @@
     python3 scripts/torch_profile_engine.py [--arch unet|flow] [--batch 8]
                                            [--calls 3] [--core-impl xla]
                                            [--depthwise] [--dtype float32]
+                                           [--core-pack 2] [--polyphase]
+                                           [--flow-bidir] [--flow-cascade 1]
+                                           [--warp-impl pyramid]
 
 Runs a production engine of the PyTorch port (random weights from seed 0)
 on gray 1080p 2x batches on the CUDA card, profiles a few warm calls, and
@@ -11,7 +14,12 @@ window, then the same as one JSON line. ``--arch unet`` is the production
 U-Net (s2d 4, base 64, head 64); ``--arch flow`` the flow production
 config (base 32, flow_scale 4, head 16, shifts warp, max_flow 16). For the
 U-Net, ``--core-impl`` is the engine's ``core_impl`` (``pallas``: the
-option core) and ``--depthwise`` selects the depthwise head. ``--dtype``
+option core), ``--depthwise`` selects the depthwise head, ``--core-pack``
+is the engine's ``core_pack`` and ``--polyphase`` turns
+``models/unet.py:UP_POLYPHASE`` on. For the flow family, ``--flow-bidir``,
+``--flow-cascade`` and ``--warp-impl`` are the model options (the
+cascade's out convs drawn, std 0.01, as ``chip_smoke.drawn_cascade``
+does). ``--dtype``
 is the engine's compute dtype; ``float32`` runs with TF32 off (cuDNN's f32
 convs use TF32 by default, which is not an f32 computation). Needs a CUDA
 card; fails without one.
@@ -42,15 +50,23 @@ def main(argv=None) -> int:
     p.add_argument("--depthwise", action="store_true")
     p.add_argument("--dtype", choices=("bfloat16", "float32"),
                    default="bfloat16")
+    p.add_argument("--core-pack", type=int, default=1)
+    p.add_argument("--polyphase", action="store_true")
+    p.add_argument("--flow-bidir", action="store_true")
+    p.add_argument("--flow-cascade", type=int, default=0)
+    p.add_argument("--warp-impl", default="shifts",
+                   choices=("shifts", "pyramid", "gather4", "patch"))
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("torch_profile_engine: needs a CUDA card", file=sys.stderr)
         return 2
     from torch.profiler import ProfilerActivity, profile
 
+    import chip_smoke
     from ai_based_frame_interpolation_torch.config import ModelConfig
     from ai_based_frame_interpolation_torch.infer.engine import (
         InterpolationEngine)
+    from ai_based_frame_interpolation_torch.models import unet as unet_mod
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
@@ -59,13 +75,18 @@ def main(argv=None) -> int:
                       upsample="half_pixel", refine_depthwise=args.depthwise) \
         if args.arch == "unet" else \
         ModelConfig(arch="flow", base_width=32, flow_scale=4, refine_width=16,
-                    warp_impl="shifts", max_flow=16)
+                    warp_impl=args.warp_impl, max_flow=16,
+                    flow_bidir=args.flow_bidir,
+                    flow_cascade=args.flow_cascade)
     dtype = getattr(torch, args.dtype)
     if dtype == torch.float32:
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
     engine = InterpolationEngine.random_init(cfg, seed=0, compute_dtype=dtype,
-                                             core_impl=args.core_impl)
+                                             core_impl=args.core_impl,
+                                             core_pack=args.core_pack)
+    chip_smoke.drawn_cascade(engine.model, seed=5)
+    unet_mod.UP_POLYPHASE = args.polyphase
     gen = np.random.default_rng(0)
     shape = (args.batch, 1080, 1920, 1)
     f1 = engine._put(gen.integers(0, 256, shape, np.uint8))
@@ -93,8 +114,11 @@ def main(argv=None) -> int:
     rows.sort(key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
     per_call = wall_ms / args.calls
-    label = args.arch if args.arch == "flow" else (
-        f"unet core_impl={args.core_impl}"
+    label = (f"flow warp_impl={args.warp_impl}"
+             f"{' bidir' if args.flow_bidir else ''}"
+             f" cascade={args.flow_cascade}") if args.arch == "flow" else (
+        f"unet core_impl={args.core_impl} core_pack={args.core_pack}"
+        f"{' polyphase' if args.polyphase else ''}"
         f"{' depthwise head' if args.depthwise else ''}") + (
         " f32 (TF32 off)" if dtype == torch.float32 else "")
     lines = [f"[{card}] {label} engine 1080p gray 2x b={args.batch}: "
@@ -109,6 +133,11 @@ def main(argv=None) -> int:
     print(json.dumps({"card": card, "arch": args.arch,
                       "core_impl": args.core_impl,
                       "depthwise": args.depthwise, "dtype": args.dtype,
+                      "core_pack": args.core_pack,
+                      "polyphase": args.polyphase,
+                      "flow_bidir": args.flow_bidir,
+                      "flow_cascade": args.flow_cascade,
+                      "warp_impl": args.warp_impl,
                       "batch": args.batch,
                       "ms_per_call": per_call, "device_busy_ms": busy,
                       "kernels": rows}), flush=True)

@@ -163,6 +163,33 @@ def test_train_then_info(tmp_path, capsys):
     assert "'base_width': 4" in out
 
 
+def test_train_flow_options_then_infer_the_export(tmp_path, capsys):
+    # the bidirectional field through a cascade stage on the pyramid warp,
+    # one step (3 train triplets, batch 2), its export loaded by infer
+    data = str(tmp_path / "data")
+    write_fixture_tree(data, num_videos=1, num_frames=6, height=32, width=32)
+    ckpt = str(tmp_path / "ckpt")
+    assert t_cli.main(["train", "--data-dir", data, "--epochs", "1",
+                       "--batch-size", "2", "--arch", "flow",
+                       "--base-width", str(BASE), "--flow-bidir",
+                       "--flow-cascade", "1", "--warp-impl", "pyramid",
+                       "--max-flow", "8", "--flow-photo", "0.1",
+                       "--checkpoint-dir", ckpt, "--num-workers", "1",
+                       "--val-split", "0.25"] + HW + CPU) == 0
+    assert "epoch 1/1" in capsys.readouterr().out
+    assert t_cli.main(["info", "--model", ckpt]) == 0
+    out = capsys.readouterr().out
+    assert "'flow_bidir': True" in out and "'flow_cascade': 1" in out
+    assert "'warp_impl': 'pyramid'" in out
+    frame = os.path.join(data, "video_00", "frame_{:03d}.png")
+    mid = str(tmp_path / "mid.png")
+    assert t_cli.main(["infer", "--frame1", frame.format(0), "--frame2",
+                       frame.format(2), "--model", ckpt, "--dtype",
+                       "float32", "--output", mid] + HW + CPU) == 0
+    img = load_image(mid)
+    assert img.shape == (32, 32, 1) and img.dtype == np.uint8
+
+
 def test_num_devices_above_one_raises_naming_data_parallel(tmp_path):
     with pytest.raises(NotImplementedError,
                        match="ROADMAP Queue A, data parallel"):
@@ -206,6 +233,6 @@ def test_the_model_config_follows_jax(pth_and_frames):
     args = parser.parse_args(["infer", "--frame1", "a", "--frame2", "b"])
     assert t_cli._model_config(args) is None
     args = parser.parse_args(["infer", "--frame1", "a", "--frame2", "b",
-                              "--core-pack", "2"] + CPU)
-    with pytest.raises(NotImplementedError, match="remaining model options"):
-        t_cli._load_engine(args)
+                              "--core-pack", "2", "--model",
+                              pth_and_frames[0]] + CPU)
+    assert t_cli._load_engine(args).core_pack == 2

@@ -150,10 +150,24 @@ def test_bridge_maps_the_flow_family(folded):
     assert {k: tuple(v.shape) for k, v in state.items()} == \
         {k: tuple(v.shape) for k, v in model.state_dict().items()}
     assert any(k.startswith("motion_unet.down2.conv.") for k in state)
-    bad = dict(variables, params=dict(variables["params"], cascade0_1={
-        "kernel": np.zeros((3, 3, 8, 32), np.float32),
+    # the cascade's keys map (HWIO -> OIHW); a key no module has raises
+    kw = dict(kw, flow_bidir=True, flow_cascade=2)
+    variables = option_variables(kw)
+    if folded:
+        variables = jax.tree.map(np.asarray, j_fold(variables))
+    state = flax_to_state_dict(variables)
+    model = t_build(TConfig(**kw), torch.float32, folded=folded)
+    assert {k: tuple(v.shape) for k, v in state.items()} == \
+        {k: tuple(v.shape) for k, v in model.state_dict().items()}
+    np.testing.assert_array_equal(
+        state["cascade1_out.weight"].numpy(),
+        np.asarray(variables["params"]["cascade1_out"]["kernel"]).transpose(
+            3, 2, 0, 1))
+    assert tuple(state["cascade0_1.weight"].shape) == (32, 9, 3, 3)
+    bad = dict(variables, params=dict(variables["params"], cascade0_9={
+        "kernel": np.zeros((3, 3, 32, 32), np.float32),
         "bias": np.zeros(32, np.float32)}))
-    with pytest.raises(KeyError, match="cascade0_1"):
+    with pytest.raises(KeyError, match="cascade0_9"):
         flax_to_state_dict(bad)
 
 
@@ -260,13 +274,92 @@ def test_batcher_over_a_flow_engine():
     assert batcher.stats["batched_requests"] == 6
 
 
-@pytest.mark.parametrize("extra", [
-    dict(flow_bidir=True), dict(flow_cascade=1), dict(warp_impl="pyramid"),
-    dict(warp_impl="gather4"), dict(warp_impl="patch")])
-def test_flow_configs_out_of_scope_raise(extra):
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP Queue A, the remaining model options"):
-        t_build(TConfig(**dict(FLOW["fs2_r8"], **extra)))
+# the options beside the production path, at fs2 + r8 (head, pooled
+# backbone): the bidirectional field, the cascade (single field, shifts:
+# the sampler's path), both together, and the other warps
+OPTIONS = {
+    "bidir": dict(flow_bidir=True),
+    "cascade1": dict(flow_cascade=1),
+    "pyramid": dict(warp_impl="pyramid"),
+    "gather4": dict(warp_impl="gather4"),
+    "patch": dict(warp_impl="patch"),
+    "bidir_cascade2": dict(flow_bidir=True, flow_cascade=2),
+}
+_OPTION_VARIABLES = {}
+
+
+def option_variables(kw):
+    """The Flax variables of config ``kw`` (drawn once per config)."""
+    key = tuple(sorted(kw.items()))
+    if key not in _OPTION_VARIABLES:
+        _OPTION_VARIABLES[key] = random_variables(kw, HW)
+    return _OPTION_VARIABLES[key]
+
+
+@pytest.mark.parametrize("option", list(OPTIONS))
+def test_flow_options_match_flax(option):
+    # motion (field and mask), sample_parts at t = 0.25 and 0.5 (one time
+    # per batch item) and forward against Flax apply, in f32: 1e-4, as
+    # test_motion_sample_parts_and_forward_match_flax
+    kw = dict(FLOW["fs2_r8"], **OPTIONS[option])
+    variables = option_variables(kw)
+    jmodel = j_build(JConfig(**kw), jnp.float32)
+    f1, f2 = _frames()
+    t = np.array([0.25, 0.5], np.float32)
+
+    def run(v, a, b, tt):
+        flow, mask = jmodel.apply(v, a, b, method="motion")
+        parts = jmodel.apply(v, a, b, flow, mask, tt, method="sample_parts")
+        return flow, mask, parts, jmodel.apply(v, a, b, tt)
+
+    jflow, jmask, jparts, jout = jax.jit(run)(variables, f1, f2, t)
+    model = _port(kw, variables)
+    with torch.inference_mode():
+        x1, x2, tt = _nchw(f1), _nchw(f2), torch.from_numpy(t)
+        flow, mask = model.motion(x1, x2)
+        parts = model.sample_parts(x1, x2, flow, mask, tt)
+        out = model(x1, x2, tt)
+    nf = 4 if kw.get("flow_bidir") else 2
+    assert tuple(flow.shape) == (2, nf, *HW)
+    close = dict(rtol=0, atol=1e-4)
+    np.testing.assert_allclose(_nhwc(flow), np.asarray(jflow), **close)
+    np.testing.assert_allclose(_nhwc(mask), np.asarray(jmask), **close)
+    for got, want in zip(parts, jparts):
+        assert got.dtype == torch.float32
+        np.testing.assert_allclose(_nhwc(got), np.asarray(want), **close)
+    np.testing.assert_allclose(_nhwc(out), np.asarray(jout), **close)
+
+
+@pytest.mark.parametrize("option", ["bidir", "cascade1", "pyramid"])
+def test_flow_option_engines_match_jax(option, monkeypatch):
+    # uint8 within 1 LSB of the JAX engine (f32, its XLA route on the CPU);
+    # the wrappers' calls counted: the sampler only where the config is
+    # the single-field shifts warp, the head once per sample
+    from ai_based_frame_interpolation_torch.models import flow as t_flow
+    from ai_based_frame_interpolation_torch.ops.warp_fused import (
+        config_eligible)
+
+    kw = dict(FLOW["fs2_r8"], **OPTIONS[option])
+    variables = option_variables(kw)
+    jeng = JEngine(j_build(JConfig(**kw), jnp.float32), variables,
+                   compute_dtype=jnp.float32)
+    teng = TEngine.from_flax_variables(variables, TConfig(**kw),
+                                       compute_dtype=torch.float32,
+                                       device="cpu")
+    calls = {"sample_fused": 0, "refine_head": 0}
+    for name in calls:
+        def counted(*a, _fn=getattr(t_flow, name), _name=name, **k):
+            calls[_name] += 1
+            return _fn(*a, **k)
+        monkeypatch.setattr(t_flow, name, counted)
+    f1, f2 = _u8_pairs(2, 30, 44, seed=9)
+    _within_1lsb(teng.interpolate_batch(f1, f2),
+                 jeng.interpolate_batch(f1, f2))
+    fused = config_eligible(TConfig(**kw))
+    assert fused == (option == "cascade1")
+    assert calls == {"sample_fused": int(fused), "refine_head": 1}
+    assert len(teng.interpolate_at(f1[0], f2[0], [0.25, 0.6])) == 2
+    assert calls == {"sample_fused": 3 * int(fused), "refine_head": 3}
 
 
 @pytest.mark.parametrize("extra", [dict(space_to_depth=2),

@@ -31,6 +31,7 @@ def test_importing_the_port_loads_no_jax():
         "import ai_based_frame_interpolation_torch.train.loop\n"
         "import ai_based_frame_interpolation_torch.train.checkpoint\n"
         "import ai_based_frame_interpolation_torch.data.loader\n"
+        "import ai_based_frame_interpolation_torch.ops.polyphase\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "assert not bad, bad\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

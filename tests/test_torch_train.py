@@ -65,6 +65,13 @@ CASES = {
              dict(flow_smooth_weight=0.1, flow_photo_weight=0.1)),
     "tower": (dict(arch="tower", base_width=8, depth=2, space_to_depth=2,
                    residual=True, refine_width=4, slim_decoder=True), {}),
+    # the bidirectional field (its F10 in the photometric loss) through a
+    # cascade stage, whose out conv is drawn, not zero, so it moves the field
+    "flow_bidir_cascade": (dict(arch="flow", base_width=4, depth=2,
+                                flow_scale=2, refine_width=4, max_flow=4,
+                                flow_bidir=True, flow_cascade=1),
+                           dict(flow_smooth_weight=0.1,
+                                flow_photo_weight=0.1)),
 }
 
 
@@ -244,8 +251,12 @@ def test_loss_gradients_and_batch_stats_match_jax(cases, name):
     # per parameter: max |g_port - g_jax| <= 1e-4 max |g_jax|; the loss
     # within 1e-4 relative (f32 convs summed in another order: the random
     # weights' predictions reach |8|, off by 1e-6 of that); the updated
-    # running statistics within 1e-6 relative
+    # running statistics within 1e-6 relative, 2e-6 for the bidirectional
+    # cascade: its weights put a batch mean of 0.133 at down1's first
+    # BatchNorm, where JAX's f32 statistic sits 1.6e-7 (1.2e-6 of it) from
+    # an f64 run of the same forward and the port's 7e-9
     case = cases[name]
+    stat_bound = 2e-6 if name == "flow_bidir_cascade" else 1e-6
     batch = _batch(1)
     v = jax.tree.map(jnp.asarray, case.variables)
     (jloss, jstats), jgrads = J_LOSS_AND_GRADS(
@@ -261,7 +272,7 @@ def test_loss_gradients_and_batch_stats_match_jax(cases, name):
     stats = _named(case.variables["params"], jax.tree.map(np.asarray, jstats))
     for bname, b in model.named_buffers():
         if "running" in bname:
-            assert _rel(b.numpy(), stats[bname]) <= 1e-6, bname
+            assert _rel(b.numpy(), stats[bname]) <= stat_bound, bname
 
 
 def _opt_moments(state):

@@ -163,11 +163,13 @@ def test_bridge_covers_the_model_and_rejects_unknown_keys():
         flax_to_state_dict(bad)
 
 
-def test_tower_and_flow_are_not_ported_yet():
-    # the tower family is ported now (tests/test_torch_tower.py); the flow
-    # family beyond its single-field path is not
+def test_tower_and_bidir_flow_build():
+    # the tower family (tests/test_torch_tower.py) and the flow family's
+    # bidirectional field (tests/test_torch_flow.py): two fields and the
+    # mask logit out of the motion backbone, as JAX's 5 channels
     with torch.device("meta"):
         assert type(t_build(TConfig(arch="tower"))).__name__ == \
             "TowerInterpolator"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_build(TConfig(arch="flow", flow_bidir=True))
+        flow = t_build(TConfig(arch="flow", flow_bidir=True))
+    assert type(flow).__name__ == "FlowInterpolator"
+    assert flow.motion_unet.outc.out_channels == 5

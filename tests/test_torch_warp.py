@@ -1,4 +1,4 @@
-"""The port's plain flow sampler and shifts warp vs the JAX package's.
+"""The port's plain flow sampler and its warps vs the JAX package's.
 
 ``sample_fused_reference`` is held against the Pallas kernel
 ``sample_fused`` in interpret mode (as ``tests/test_warp_fused.py`` runs it
@@ -10,6 +10,7 @@ interpret mode may contract a product and a sum that the port keeps apart
 (one f32 ulp of values of order 1).
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -98,20 +99,72 @@ def test_backward_warp_reads_x_at_the_source_row():
     np.testing.assert_array_equal(out[0, 3, :, 0], img[0, 3, :, 0])
 
 
-@pytest.mark.parametrize("impl", ["patch", "pyramid"])
-def test_other_warps_are_not_ported(impl):
-    img = torch.zeros(1, 4, 4, 1)
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP Queue A, the remaining model options"):
-        backward_warp(img, torch.zeros(1, 4, 4, 2), impl=impl)
+def _warp_cases(max_flow, seed):
+    """Gray and RGB 19x27 images, each under three flows stacked on the
+    batch axis: random within the bound, a smooth field reaching the
+    bound, and random out to 3x the bound (saturated)."""
+    rng = np.random.default_rng(seed)
+    h, w = 19, 27
+    y, x = np.mgrid[0:h, 0:w].astype(np.float32)
+    smooth = np.stack([max_flow * np.sin(x / 7.0 + y / 9.0),
+                       max_flow * np.cos(y / 5.0 - x / 11.0)], -1)
+    flow = np.stack([rng.uniform(-max_flow, max_flow, (h, w, 2)), smooth,
+                     rng.uniform(-3 * max_flow, 3 * max_flow, (h, w, 2))])
+    imgs = [rng.standard_normal((3, h, w, c)).astype(np.float32)
+            for c in (1, 3)]
+    return imgs, flow.astype(np.float32)
+
+
+@pytest.mark.parametrize("max_flow", [4, 8, 16])   # the pyramid: the shifts
+@pytest.mark.parametrize("impl", ["patch", "pyramid"])  # pass, stride 2, 4
+def test_other_warps_match_jax(impl, max_flow):
+    # one f32 lerp per axis and tap set, the same on both sides: 1e-5
+    imgs, flow = _warp_cases(max_flow, seed=max_flow)
+    want = jax.jit(lambda a, b, f: [
+        j_backward_warp(i, f, impl=impl, max_flow=max_flow)
+        for i in (a, b)])(*imgs, flow)
+    for img, w in zip(imgs, want):
+        got = backward_warp(torch.from_numpy(img), torch.from_numpy(flow),
+                            impl=impl, max_flow=max_flow)
+        assert got.dtype == torch.float32 and got.shape == img.shape
+        np.testing.assert_allclose(got.numpy(), np.asarray(w), rtol=0,
+                                   atol=1e-5)
+
+
+def test_pyramid_warp_gradients_match_jax():
+    # the family trains through the pyramid warp: gradients in the image
+    # and the flow against jax.vjp on the same cotangent at stride 4 (1e-4:
+    # sums of a few f32 products each, scattered in another order). The
+    # smooth field sits on the bound and on the border at some pixels:
+    # there both take half the gradient through the clip (ops/warp._clip)
+    max_flow = 16
+    imgs, flow = _warp_cases(max_flow, seed=11)
+    img = imgs[1]
+    cot = np.random.default_rng(12).standard_normal(img.shape).astype(
+        np.float32)
+
+    def value_and_vjp(i, f, c):
+        out, vjp = jax.vjp(lambda i, f: j_backward_warp(
+            i, f, impl="pyramid", max_flow=max_flow), i, f)
+        return (out,) + vjp(c)
+
+    want, gi, gf = jax.jit(value_and_vjp)(img, flow, cot)
+    ti = torch.from_numpy(img).requires_grad_()
+    tf = torch.from_numpy(flow).requires_grad_()
+    got = backward_warp(ti, tf, impl="pyramid", max_flow=max_flow)
+    got.backward(torch.from_numpy(cot))
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               rtol=0, atol=1e-5)
+    np.testing.assert_allclose(ti.grad.numpy(), np.asarray(gi), rtol=0,
+                               atol=1e-4)
+    np.testing.assert_allclose(tf.grad.numpy(), np.asarray(gf), rtol=0,
+                               atol=1e-4)
 
 
 def test_gather4_warp_and_its_gradients_match_jax():
     # the exact bilinear warp of the trainer's flow photometric loss, with
     # flows past the border on both sides: values and the gradients in the
     # image and the flow (a sum of a few f32 products each: 1e-5)
-    import jax
-
     rng = np.random.default_rng(3)
     img = rng.standard_normal((2, 9, 13, 2)).astype(np.float32)
     flow = rng.uniform(-8, 8, (2, 9, 13, 2)).astype(np.float32)
@@ -143,6 +196,10 @@ def test_eligible():
     assert not eligible(TConfig(arch="flow", flow_bidir=True), (1, 8, 8, 1))
     assert not eligible(TConfig(arch="flow", warp_impl="pyramid"),
                         (1, 8, 8, 1))
+    # the cascade's stages run before the sampler: it still samples
+    assert eligible(TConfig(arch="flow", flow_cascade=2), (1, 8, 8, 1))
+    assert not eligible(TConfig(arch="flow", flow_cascade=1,
+                                flow_bidir=True), (1, 8, 8, 1))
 
 
 def test_cpu_wrapper_runs_the_plain_version_without_launching():
