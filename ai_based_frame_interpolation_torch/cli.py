@@ -361,41 +361,41 @@ def _load_engine(args, allow_random: bool = False):
 
 def _train_devices(args):
     """(device, count) for ``train``: ``--num-devices -1`` counts every
-    visible card. One device only: more raise, naming the ROADMAP item,
-    so nothing trains on fewer cards than asked."""
+    visible card, or 1 on ``--device cpu``; on the CPU any count runs
+    that many processes. More cards than are visible raise JAX's
+    ``make_mesh`` error."""
     import torch
 
     from .infer.engine import resolve_device
 
     device = resolve_device(args.device)
     n_dev = args.num_devices
+    cards = torch.cuda.device_count() if device.type == "cuda" else None
     if n_dev in (-1, None):
-        n_dev = torch.cuda.device_count() if device.type == "cuda" else 1
+        n_dev = cards if cards is not None else 1
     if n_dev < 1:
         raise ValueError(f"--num-devices must be -1 or >= 1, got {n_dev}")
-    if n_dev > 1:
-        raise NotImplementedError(
-            f"training on {n_dev} devices needs data parallel, which is not "
-            "ported yet (ROADMAP Queue A, data parallel); pass "
-            "--num-devices 1")
+    if cards is not None and n_dev > cards:
+        raise ValueError(f"requested {n_dev} devices, only {cards} visible")
     return device, n_dev
 
 
-def cmd_train(args) -> int:
-    from .config import LossConfig
-    from .data.loader import TripletLoader
+def _on_cpu(args) -> bool:
+    return args.device is not None and args.device.startswith("cpu")
+
+
+def _train_plan(args, n_dev: int, verbose: bool = True):
+    """(train triplets, val triplets, global batch): JAX's batch rounded
+    up to a multiple of ``n_dev`` and clamped against the train set, with
+    JAX's notes."""
     from .data.triplets import scan_triplets, split_triplets
-    from .infer.engine import _init_weights
-    from .models import build_model
-    from .models.unet import count_parameters
-    from .train.checkpoint import Checkpointer, save_variables
-    from .train.loop import History, create_train_state, train_model
+    from .parallel.mesh import pad_batch_to_devices
 
-    import torch
-
-    device, n_dev = _train_devices(args)
-    batch = args.batch_size
-
+    say = print if verbose else (lambda *a: None)
+    batch = pad_batch_to_devices(args.batch_size, n_dev)
+    if batch != args.batch_size:
+        say(f"note: batch size rounded up to {batch} "
+            f"(divisible by {n_dev} devices)")
     triplets = scan_triplets(args.data_dir)
     if len(triplets) < 2:
         raise SystemExit(f"error: not enough triplets in {args.data_dir} "
@@ -410,21 +410,106 @@ def cmd_train(args) -> int:
             raise SystemExit(
                 f"error: only {len(train_t)} train triplets for {n_dev} "
                 "devices; add data or reduce --num-devices/--val-split")
-        print(f"note: batch size clamped to {clamped} "
-              f"(only {len(train_t)} train triplets; drop-remainder "
-              "batching would otherwise yield zero steps/epoch)")
+        say(f"note: batch size clamped to {clamped} "
+            f"(only {len(train_t)} train triplets; drop-remainder "
+            "batching would otherwise yield zero steps/epoch)")
         batch = clamped
-    print(f"dataset: {len(triplets)} triplets "
-          f"({len(train_t)} train / {len(val_t)} val), "
-          f"{n_dev} device ({device}), global batch {batch}")
+    say(f"dataset: {len(triplets)} triplets "
+        f"({len(train_t)} train / {len(val_t)} val), "
+        f"{n_dev}-device mesh, global batch {batch}")
+    return train_t, val_t, batch
 
-    kw = dict(batch_size=batch, height=args.height, width=args.width,
-              grayscale=args.channels == 1, num_workers=args.num_workers,
-              device=device)
-    train_loader = TripletLoader(train_t, seed=args.seed + 1,
-                                 augment=args.augment, **kw)
-    val_loader = TripletLoader(val_t, shuffle=False, drop_remainder=False, **kw)
 
+def _train_ranked(args, verbose: bool = True) -> int:
+    """Train as this process's rank of the group that torchrun's
+    environment describes (``MASTER_ADDR``, ``MASTER_PORT``,
+    ``WORLD_SIZE``, ``RANK``, ``LOCAL_RANK``): NCCL on its card, gloo on
+    the CPU with ``--device cpu``. Rank 0 prints, and the plan too where
+    ``verbose``; the group is left at the end."""
+    import torch.distributed as dist
+
+    from .parallel.mesh import make_mesh, maybe_init_distributed
+
+    cpu = _on_cpu(args)
+    maybe_init_distributed("gloo" if cpu else "nccl")
+    try:
+        world = dist.get_world_size()
+        mesh = make_mesh(args.num_devices,
+                         devices=["cpu"] * world if cpu else None)
+        plan = _train_plan(args, mesh.size, verbose and mesh.rank == 0)
+        return _train(args, *plan, mesh=mesh)
+    finally:
+        dist.destroy_process_group()
+
+
+def _train_worker(rank: int, args, n_dev: int, port: int,
+                  threads: int) -> None:
+    """Rank ``rank`` of ``cmd_train``'s ``n_dev`` processes: torchrun's
+    environment for a group at 127.0.0.1:``port``, then
+    :func:`_train_ranked`; on the CPU with its share of the launcher's
+    ``threads`` (oversubscribed cores slow every rank down tenfold)."""
+    import torch
+
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                      WORLD_SIZE=str(n_dev), RANK=str(rank),
+                      LOCAL_RANK=str(rank))
+    if _on_cpu(args):
+        torch.set_num_threads(max(1, threads // n_dev))
+    _train_ranked(args, verbose=False)
+
+
+def _spawn_workers(worker, n: int, args: tuple) -> int:
+    """``worker(rank, *args)`` in ``n`` processes: 0 when every one ends
+    well; else 1, with the first failing worker's error, the others
+    ended."""
+    import torch.multiprocessing as mp
+    from torch.multiprocessing.spawn import ProcessException
+
+    try:
+        mp.spawn(worker, args=args, nprocs=n, join=True)
+    except ProcessException as e:
+        print(f"error: a training worker failed: {e}", file=sys.stderr)
+        return 1
+    return 0
+
+
+def cmd_train(args) -> int:
+    """Train on ``--num-devices`` cards: one in this process; more, one
+    process each (``torch.multiprocessing.spawn``) meeting at 127.0.0.1 on
+    a free port; under torchrun's environment this process joins the
+    group it was given instead (:func:`_train_ranked`). A worker that
+    fails ends the others and the command, with its error."""
+    import torch
+
+    from .parallel.mesh import free_port, launched
+
+    if launched():
+        return _train_ranked(args)
+    device, n_dev = _train_devices(args)
+    plan = _train_plan(args, n_dev)
+    if n_dev == 1:
+        return _train(args, *plan, device=device)
+    return _spawn_workers(_train_worker, n_dev, (
+        args, n_dev, free_port(), torch.get_num_threads()))
+
+
+def _train(args, train_t, val_t, batch: int, device=None, mesh=None) -> int:
+    """Train on the plan's triplets at global batch ``batch``, on
+    ``device``, or data parallel on ``mesh`` (a process group's); rank 0
+    prints."""
+    from .config import LossConfig
+    from .data.loader import TripletLoader
+    from .infer.engine import _init_weights
+    from .models import build_model
+    from .models.unet import count_parameters
+    from .train.checkpoint import Checkpointer, save_variables
+    from .train.loop import History, create_train_state, train_model
+
+    import torch
+
+    if mesh is not None:
+        device = mesh.device
+    say = print if mesh is None or mesh.rank == 0 else (lambda *a: None)
     mcfg = ModelConfig(arch=args.arch, channels=args.channels,
                        space_to_depth=args.s2d, residual=args.residual,
                        refine_width=args.refine_width,
@@ -461,13 +546,21 @@ def cmd_train(args) -> int:
                                        census_weight=args.census,
                                        census_window=args.census_window))
 
+    kw = dict(batch_size=batch, height=args.height, width=args.width,
+              grayscale=args.channels == 1, num_workers=args.num_workers,
+              device=device, mesh=mesh)
+    train_loader = TripletLoader(train_t, seed=args.seed + 1,
+                                 augment=args.augment,
+                                 grad_accum=args.grad_accum, **kw)
+    val_loader = TripletLoader(val_t, shuffle=False, drop_remainder=False, **kw)
+
     def fresh_model():
         model = build_model(mcfg)
         _init_weights(model, torch.Generator().manual_seed(args.seed))
         return model
 
     model = fresh_model()
-    print(f"model: {count_parameters(model):,} parameters")
+    say(f"model: {count_parameters(model):,} parameters")
 
     ckpt = Checkpointer(args.checkpoint_dir, device=device)
     start_epoch, state, history = 0, None, None
@@ -476,12 +569,12 @@ def cmd_train(args) -> int:
         state, start_epoch, hist_dict = ckpt.restore(state0, which="latest")
         if hist_dict:
             history = History(**hist_dict)
-        print(f"resumed from epoch {start_epoch}")
+        say(f"resumed from epoch {start_epoch}")
 
     state, history = train_model(model, None, train_loader, val_loader,
                                  tcfg, device=device, checkpointer=ckpt,
                                  start_epoch=start_epoch, state=state,
-                                 history=history)
+                                 history=history, mesh=mesh)
     # export the best weights for inference, with the model config (the EMA
     # weights when EMA is on: they are what validation ranked)
     best, _, _ = ckpt.restore(create_train_state(fresh_model(), None, tcfg,
@@ -489,8 +582,8 @@ def cmd_train(args) -> int:
     save_variables(args.checkpoint_dir,
                    best.variables(use_ema=tcfg.ema_decay > 0
                                   and best.ema_params is not None), mcfg)
-    print(f"checkpoints in {args.checkpoint_dir}/ "
-          "(best exported for inference)")
+    say(f"checkpoints in {args.checkpoint_dir}/ "
+        "(best exported for inference)")
     return 0
 
 

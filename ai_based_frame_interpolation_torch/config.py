@@ -1,11 +1,11 @@
 """Configuration dataclasses of the PyTorch port.
 
 The port keeps its own copy of the JAX package's ``ModelConfig``,
-``LossConfig``, ``TrainConfig``, ``DataConfig``, ``ServeConfig`` and
-``VideoConfig`` with the same field names and defaults, so one ``model_config.json`` means the same model on both
-sides. The comments on
-each field say what it selects; the JAX package's ``config.py`` holds the
-measurements behind the defaults.
+``LossConfig``, ``TrainConfig``, ``DataConfig``, ``ServeConfig``,
+``VideoConfig``, ``MeshConfig`` and ``Config`` with the same field names
+and defaults, so one ``model_config.json`` means the same model on both
+sides. The comments on each field say what it selects; the JAX package's
+``config.py`` holds the measurements behind the defaults.
 """
 
 from __future__ import annotations
@@ -161,6 +161,26 @@ class VideoConfig:
     batch_pairs: int = 8         # frame pairs per device batch
     fps: Optional[float] = None  # None = scale source fps by factor
     codec: str = "mp4v"
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    """Data parallelism (``parallel/``): the batch axis split over
+    ``data_axis`` cards, one process each for training, one replica each
+    for the engine. ``data_axis=-1`` means every visible card."""
+
+    data_axis: int = -1
+    axis_name: str = "data"
+
+
+@dataclass(frozen=True)
+class Config:
+    model: ModelConfig = field(default_factory=ModelConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
+    data: DataConfig = field(default_factory=DataConfig)
+    video: VideoConfig = field(default_factory=VideoConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
+    serve: ServeConfig = field(default_factory=ServeConfig)
 
 
 def replace(cfg, **kwargs):

@@ -14,10 +14,17 @@ Video streams (``interpolate_video_frames``, ``retime_video_frames`` and
 their ``_file`` forms) batch consecutive pairs, assemble the output on
 the host (``ops/native.py``) and, for 2x/4x, queue batch k+1 on the card
 before they drain batch k (``_Transfers``).
+
+With ``mesh`` (an engine mesh, ``parallel/mesh.py``) the engine keeps a
+replica of its folded weights on each card of the mesh and splits each
+dispatch's batch into equal chunks, one a card (``_over_mesh``); each
+chunk takes the routes the engine takes at that batch, the kernels
+included.
 """
 
 from __future__ import annotations
 
+import copy
 import math
 import re
 import time
@@ -33,6 +40,7 @@ from ..models.unet import fold_batchnorm, tile_params_packed
 from ..ops import native, warp_fused
 from ..ops.image import denormalize_to_uint8, normalize_uint8
 from ..ops.resize import crop_to, pad_to_multiple
+from ..parallel.sharding import choose_spec, put_frames, spatial_error
 
 
 _CORE_IMPLS = ("xla", "auto", "pallas")
@@ -181,13 +189,30 @@ class InterpolationEngine:
     core: ``"auto"`` leaves it on cuDNN, ``"pallas"`` raises. The JAX
     package packs to fill the TPU's 128 lanes; what it gains on the card is
     measured, not assumed (``PERF.md``).
+
+    ``mesh`` (``parallel.make_mesh`` without a process group; its first
+    card replaces ``device``) splits every dispatch across the mesh's
+    cards, as the JAX engine's ``mesh`` does, with one replica of the
+    weights on each (module docstring). A batch the cards do not divide
+    takes JAX's choice (``parallel.sharding.choose_spec``): where that is
+    the frames' height, ``NotImplementedError`` (ROADMAP Queue A, spatial
+    sharding); where it replicates, the first card runs it. The JAX
+    engine turns its Pallas routes off under a mesh because a Pallas call
+    does not run inside its sharded program; the port's kernels run per
+    card, so every route stays on.
     """
 
     def __init__(self, model: torch.nn.Module,
                  state: Optional[Mapping[str, torch.Tensor]] = None,
                  compute_dtype=torch.bfloat16, fold: bool = True,
-                 device=None, core_impl: str = "xla", core_pack: int = 1):
-        self.device = resolve_device(device)
+                 device=None, core_impl: str = "xla", core_pack: int = 1,
+                 mesh=None):
+        if mesh is not None and mesh.grouped:
+            raise ValueError("an engine's mesh holds this process's cards: "
+                             "make_mesh(devices=...) outside a process group")
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None \
+            else resolve_device(device)
         cfg = model.cfg
         state = dict(state if state is not None else model.state_dict())
         if fold and not model.folded:
@@ -198,6 +223,12 @@ class InterpolationEngine:
         model.load_state_dict(state)
         self.model = model.to(self.device).eval().requires_grad_(False)
         self.model.pack_head()          # the head kernel's weight layouts
+        # one replica a card of the mesh, the first the engine's own model
+        self.replicas = [self.model]
+        for dev in (mesh.devices[1:] if mesh is not None else ()):
+            replica = copy.deepcopy(self.model).to(dev)
+            replica.pack_head()
+            self.replicas.append(replica)
         self.cfg: ModelConfig = cfg
         self.compute_dtype = compute_dtype
         self.core_pack = int(core_pack or 1)
@@ -221,9 +252,10 @@ class InterpolationEngine:
         if value not in _CORE_IMPLS:
             raise ValueError(f"core_impl must be one of {_CORE_IMPLS}; got "
                              f"{value!r}")
-        if value != "xla" and self._core_applies() \
-                and self.model.packed_core is None:
-            self.model.pack_core()
+        if value != "xla" and self._core_applies():
+            for model in self.replicas:
+                if model.packed_core is None:
+                    model.pack_core()
         self._core_impl = value
 
     @property
@@ -240,21 +272,22 @@ class InterpolationEngine:
     @classmethod
     def random_init(cls, cfg: Optional[ModelConfig] = None, seed: int = 0,
                     compute_dtype=torch.bfloat16, fold: bool = True,
-                    device=None, core_impl: str = "xla", core_pack: int = 1
-                    ) -> "InterpolationEngine":
+                    device=None, core_impl: str = "xla", core_pack: int = 1,
+                    mesh=None) -> "InterpolationEngine":
         """Engine with random weights from ``seed`` (plumbing and speed
         runs). The numbers differ from JAX's for the same seed."""
         cfg = cfg or ModelConfig()
         model = build_model(cfg, compute_dtype)
         _init_weights(model, torch.Generator().manual_seed(seed))
         return cls(model, None, compute_dtype, fold=fold, device=device,
-                   core_impl=core_impl, core_pack=core_pack)
+                   core_impl=core_impl, core_pack=core_pack, mesh=mesh)
 
     @classmethod
     def from_checkpoint(cls, path: str, cfg: Optional[ModelConfig] = None,
                         compute_dtype=torch.bfloat16, fold: bool = True,
                         device=None, core_impl: str = "xla",
-                        core_pack: int = 1) -> "InterpolationEngine":
+                        core_pack: int = 1, mesh=None
+                        ) -> "InterpolationEngine":
         """Engine over an inference export of the port's trainer
         (``train/checkpoint.py:save_variables``: ``variables.pt`` and
         ``model_config.json``) or a reference-format ``.pth`` (or ``.pt``;
@@ -280,20 +313,21 @@ class InterpolationEngine:
                 "directory with variables.pt, written by save_variables)")
         return cls(build_model(cfg, compute_dtype), variables, compute_dtype,
                    fold=fold, device=device, core_impl=core_impl,
-                   core_pack=core_pack)
+                   core_pack=core_pack, mesh=mesh)
 
     @classmethod
     def from_flax_variables(cls, variables: Mapping, cfg: ModelConfig,
                             compute_dtype=torch.bfloat16, fold: bool = True,
                             device=None, core_impl: str = "xla",
-                            core_pack: int = 1) -> "InterpolationEngine":
+                            core_pack: int = 1, mesh=None
+                            ) -> "InterpolationEngine":
         """Engine over a Flax variables tree given as numpy arrays
         (``models/bridge.py``)."""
         folded = not variables.get("batch_stats")
         model = build_model(cfg, compute_dtype, folded=folded)
         return cls(model, flax_to_state_dict(variables), compute_dtype,
                    fold=fold, device=device, core_impl=core_impl,
-                   core_pack=core_pack)
+                   core_pack=core_pack, mesh=mesh)
 
     # -- the pair function --------------------------------------------------
 
@@ -316,16 +350,17 @@ class InterpolationEngine:
         limit = self.max_dispatch_batch
         return not (limit and limit % g) and batch % g == 0
 
-    def _packed_core(self) -> torch.nn.Module:
-        """The ``pack=core_pack`` model on the engine's weights, built once
-        (the repeated weights made on the device) and cached."""
-        key = ("packed_core", self.core_pack)
+    def _packed_core(self, replica: torch.nn.Module) -> torch.nn.Module:
+        """The ``pack=core_pack`` model on ``replica``'s weights, built
+        once (the repeated weights made on its device) and cached."""
+        i = self.replicas.index(replica)
+        key = ("packed_core", self.core_pack) + ((i,) if i else ())
         if key not in self._fn_cache:
             with torch.device("meta"):
                 model = build_model(self.cfg, self.compute_dtype,
                                     folded=True, pack=self.core_pack)
             model.load_state_dict(tile_params_packed(
-                self.model.state_dict(), self.core_pack), assign=True)
+                replica.state_dict(), self.core_pack), assign=True)
             model = model.eval().requires_grad_(False)
             model.pack_head()
             self._fn_cache[key] = model
@@ -363,7 +398,7 @@ class InterpolationEngine:
             y = core_t.forward_pre_refine(model, x1, x2)
             return model.refine(y, x1, x2).to(self.compute_dtype)
         if self._use_pack(int(x1.shape[0])):
-            model = self._packed_core()
+            model = self._packed_core(model)
         return model(x1, x2).to(self.compute_dtype)
 
     def _pair_fn(self, n_out: int, depth: int):
@@ -374,10 +409,12 @@ class InterpolationEngine:
         return self._fn_cache[key]
 
     def _chunk_batches(self, fn):
-        """Honour ``max_dispatch_batch``: split a larger batch into
-        sequential chunks and concatenate the results."""
+        """The batch splitter: with a mesh, one chunk a card
+        (:meth:`_over_mesh`); then ``max_dispatch_batch``, a larger chunk
+        split into sequential dispatches; the results concatenated in
+        order."""
 
-        def wrapper(model, f1_u8, f2_u8):
+        def limited(model, f1_u8, f2_u8):
             limit = self.max_dispatch_batch
             b = int(f1_u8.shape[0])
             if not limit or b <= limit:
@@ -386,7 +423,33 @@ class InterpolationEngine:
                                  f2_u8[i:i + limit])
                               for i in range(0, b, limit)], 0)
 
+        def wrapper(model, f1_u8, f2_u8):
+            if self.mesh is None:
+                return limited(model, f1_u8, f2_u8)
+            return self._over_mesh(limited, f1_u8, f2_u8)
+
         return wrapper
+
+    def _over_mesh(self, fn, f1_u8, f2_u8, ts=None):
+        """``fn(replica, f1 chunk, f2 chunk[, times])`` for each card's
+        chunk of the batch (``parallel.sharding.put_frames``), issued in
+        turn from this thread with no wait between them (how far the
+        cards' work overlaps is PERF.md's to say); the outputs
+        concatenated in order on the first card. Times per pair
+        (``ts`` [n_t, B]) are split with the pairs."""
+        parts = [put_frames(f, self.mesh) for f in (f1_u8, f2_u8)]
+        n = len(parts[0])
+        outs = []
+        for i, (a, b) in enumerate(zip(*parts)):
+            args = [self.replicas[i], a, b]
+            if ts is not None:
+                t = ts.to(a.device)
+                if t.ndim == 2:
+                    per = t.shape[1] // n
+                    t = t[:, i * per:(i + 1) * per]
+                args.append(t)
+            outs.append(fn(*args))
+        return torch.cat([o.to(self.device) for o in outs], 0)
 
     def _prep(self, f_u8: torch.Tensor):
         """uint8 [B,H,W,C] -> (padded NCHW frames in the compute dtype,
@@ -454,7 +517,9 @@ class InterpolationEngine:
     def _time_fn(self, n_t: int):
         key = ("time", n_t)
         if key not in self._fn_cache:
-            self._fn_cache[key] = self._build_time_fn(n_t)
+            fn = self._build_time_fn(n_t)
+            self._fn_cache[key] = fn if self.mesh is None else (
+                lambda model, f1, f2, ts: self._over_mesh(fn, f1, f2, ts))
         return self._fn_cache[key]
 
     def _build_time_fn(self, n_t: int):
@@ -487,8 +552,27 @@ class InterpolationEngine:
     def _tower_stream_fn(self):
         key = ("tower_stream",)
         if key not in self._fn_cache:
-            self._fn_cache[key] = self._build_tower_stream_fn()
+            fn = self._build_tower_stream_fn()
+            self._fn_cache[key] = fn if self.mesh is None else (
+                lambda model, frames: self._tower_over_mesh(fn, frames))
         return self._fn_cache[key]
+
+    def _tower_over_mesh(self, fn, frames: torch.Tensor) -> torch.Tensor:
+        """The tower stream step over the mesh: the K frames split as JAX
+        splits them (``choose_spec`` on K), each card taking its K/n frames
+        and the next one, so that the K-1 pairs are each encoded on one
+        card."""
+        k, h = int(frames.shape[0]), int(frames.shape[1])
+        spec = choose_spec(k, h, self.mesh)
+        if len(spec) > 1:
+            raise spatial_error(self.mesh)
+        if not spec:
+            return fn(self.model, frames)
+        per = k // self.mesh.size
+        outs = [fn(replica, frames[i * per:(i + 1) * per + 1].to(dev))
+                for i, (replica, dev) in enumerate(
+                    zip(self.replicas, self.mesh.devices))]
+        return torch.cat([o.to(self.device) for o in outs], 0)
 
     def _build_tower_stream_fn(self):
         """Tower stream step: uint8 [K,H,W,C] consecutive frames -> uint8

@@ -41,6 +41,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
 
@@ -121,6 +122,30 @@ def grouped_concat(parts, g: int) -> torch.Tensor:
                      2).reshape(b, -1, h, w)
 
 
+def _world() -> int:
+    """The process group's size; 1 without one."""
+    return dist.get_world_size() if dist.is_available() and \
+        dist.is_initialized() else 1
+
+
+class _SumOverRanks(torch.autograd.Function):
+    """The sum over the process group's ranks (``all_reduce``); its
+    backward is the sum of the ranks' gradients, what each rank's input
+    contributes to every rank's loss."""
+
+    @staticmethod
+    def forward(ctx, x):
+        x = x.clone()
+        dist.all_reduce(x)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone()
+        dist.all_reduce(g)
+        return g
+
+
 def batch_norm(x: torch.Tensor, bn: nn.BatchNorm2d,
                train: bool = False) -> torch.Tensor:
     """``bn`` applied to NCHW ``x`` in f32, as Flax's ``BatchNorm(dtype=f32,
@@ -129,13 +154,29 @@ def batch_norm(x: torch.Tensor, bn: nn.BatchNorm2d,
     as Flax computes them (``E[x^2] - E[x]^2``, clipped at 0) and
     differentiable; the running statistics then move by Flax's rule, in
     place, with the biased variance (``F.batch_norm(training=True)`` would
-    take the unbiased one)."""
-    x = x.float()
+    take the unbiased one).
+
+    In a process group of more than one rank the statistics are the
+    global batch's, as JAX's mean over a sharded batch is: the sums of x
+    and x^2 and the count, all-reduced in f32 through a differentiable
+    collective, whose backward sums each rank's gradient of them. An f64
+    ``x`` stays f64 (a reference for the f32 arithmetic)."""
+    x = x.to(torch.promote_types(x.dtype, torch.float32))
     if not train:
         return F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight,
                             bn.bias, False, 0.0, bn.eps)
-    mean = torch.mean(x, (0, 2, 3))
-    var = torch.clamp(torch.mean(x * x, (0, 2, 3)) - mean * mean, min=0.0)
+    if _world() > 1:
+        count = torch.full((1,), x.numel() // x.shape[1], dtype=x.dtype,
+                           device=x.device)
+        sums = _SumOverRanks.apply(torch.cat([x.sum((0, 2, 3)),
+                                              (x * x).sum((0, 2, 3)), count]))
+        c = x.shape[1]
+        mean = sums[:c] / sums[-1]
+        var = torch.clamp(sums[c:2 * c] / sums[-1] - mean * mean, min=0.0)
+    else:
+        mean = torch.mean(x, (0, 2, 3))
+        var = torch.clamp(torch.mean(x * x, (0, 2, 3)) - mean * mean,
+                          min=0.0)
     with torch.no_grad():
         bn.running_mean.copy_(BN_MOMENTUM * bn.running_mean
                               + (1 - BN_MOMENTUM) * mean)

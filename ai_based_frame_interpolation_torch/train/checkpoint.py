@@ -14,7 +14,11 @@ package's directory layout:
 
 A resume restores the optimizer's state too (the reference saves it but
 never reloads it). Each file is written to a temporary name and renamed,
-so a crash mid-save leaves the previous checkpoint whole.
+so a crash mid-save leaves the previous checkpoint whole. In a process
+group (data parallel) rank 0 alone writes, then every rank waits at a
+barrier, so no file is written twice and none is read before it is
+whole; rank 0 alone reads, and broadcasts what it read, so the directory
+need only be on rank 0's host.
 
 The reference's ``.pth`` (its checkpoint dict, ``model/train.py:232-244``,
 or a bare state dict) maps onto the port's U-Net state by name alone:
@@ -27,15 +31,55 @@ layouts are the port's own, so no array is transposed or flipped.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import os
 from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..config import ModelConfig
 from ..infer.engine import resolve_device
+
+
+def _rank0_writes(write):
+    """``write`` on rank 0 alone in a process group, then a barrier for
+    every rank; as it is without a group."""
+
+    @functools.wraps(write)
+    def wrapper(*args, **kwargs):
+        if not dist.is_initialized():
+            return write(*args, **kwargs)
+        out = write(*args, **kwargs) if dist.get_rank() == 0 else None
+        dist.barrier()
+        return out
+
+    return wrapper
+
+
+def _rank0_reads(read):
+    """``read`` on rank 0 alone in a process group of several ranks, its
+    result, or its error, broadcast to every rank; as it is without one."""
+
+    @functools.wraps(read)
+    def wrapper(*args, **kwargs):
+        if not dist.is_initialized() or dist.get_world_size() == 1:
+            return read(*args, **kwargs)
+        box = [None]
+        if dist.get_rank() == 0:
+            try:
+                box[0] = (read(*args, **kwargs), None)
+            except Exception as e:  # every rank raises it, none waits
+                box[0] = (None, e)
+        dist.broadcast_object_list(box, 0)
+        out, err = box[0]
+        if err is not None:
+            raise err
+        return out
+
+    return wrapper
 
 
 def _tree_of(state) -> Dict[str, Any]:
@@ -76,6 +120,7 @@ class Checkpointer:
                 else None}
         _write_json(meta, os.path.join(self.directory, f"{name}_meta.json"))
 
+    @_rank0_writes
     def save(self, state, epoch: int, history=None, best: bool = False,
              latest: bool = True) -> None:
         if latest:
@@ -92,20 +137,14 @@ class Checkpointer:
         Returns (state, epoch, history_dict): epoch is the NEXT epoch to
         run.
         """
-        path = os.path.join(self.directory, which)
-        if not os.path.exists(path) and which == "best":
-            which = "latest"            # best never written yet
-            path = os.path.join(self.directory, which)
-        if not os.path.exists(path):
-            raise FileNotFoundError(f"no checkpoint under {self.directory}")
         state = template_state
         dev = next(state.model.parameters()).device
         if dev.type != self.device.type:
             raise ValueError(f"restore: the template lives on {dev}, the "
                              f"checkpointer on {self.device}")
-        # read to the host: load_state_dict copies each tensor onto its
-        # parameter's device, and keeps Adam's step counts on the host
-        tree = torch.load(path, map_location="cpu", weights_only=True)
+        tree, meta = self._read(which)
+        # load_state_dict copies each tensor onto its parameter's device,
+        # and keeps Adam's step counts on the host
         state.model.load_state_dict(tree["model"])
         state.tx.load_state_dict(tree["opt_state"])
         state.step = int(tree["step"])
@@ -116,19 +155,36 @@ class Checkpointer:
                 for name, e in state.ema_params.items():
                     e.copy_(src[name])
         state._scored = None
-        meta_path = os.path.join(self.directory, f"{which}_meta.json")
         epoch, history = 0, None
-        if os.path.exists(meta_path):
-            with open(meta_path) as f:
-                meta = json.load(f)
+        if meta is not None:
             epoch = int(meta.get("epoch", -1)) + 1
             history = meta.get("history")
         return state, epoch, history
 
+    @_rank0_reads
+    def _read(self, which: str):
+        """(the tree, the meta dict or None) of ``which``, on the host
+        (``best`` falls back to ``latest`` until one is written)."""
+        path = os.path.join(self.directory, which)
+        if not os.path.exists(path) and which == "best":
+            which = "latest"            # best never written yet
+            path = os.path.join(self.directory, which)
+        if not os.path.exists(path):
+            raise FileNotFoundError(f"no checkpoint under {self.directory}")
+        tree = torch.load(path, map_location="cpu", weights_only=True)
+        meta_path = os.path.join(self.directory, f"{which}_meta.json")
+        meta = None
+        if os.path.exists(meta_path):
+            with open(meta_path) as f:
+                meta = json.load(f)
+        return tree, meta
+
+    @_rank0_reads
     def has_checkpoint(self, which: str = "latest") -> bool:
         return os.path.exists(os.path.join(self.directory, which))
 
 
+@_rank0_writes
 def save_variables(directory: str, variables: Mapping[str, torch.Tensor],
                    cfg: Optional[ModelConfig] = None) -> None:
     """Save an inference export: ``variables`` (a state dict, unfolded
@@ -268,6 +324,7 @@ def export_state_dict(variables: Mapping[str, torch.Tensor],
             for port, ref in pairs}
 
 
+@_rank0_writes
 def export_pth(path: str, variables: Mapping[str, torch.Tensor],
                cfg: Optional[ModelConfig] = None, epoch: int = 0,
                train_loss: float = 0.0, val_loss: float = 0.0) -> str:

@@ -19,6 +19,17 @@ scores, and the SSIM kernel through ``ssim_eval_auto``.
 Layout: batches are uint8 NHWC as in JAX; the models take NCHW views, and
 the losses NHWC. Everything runs on ``device``: the card unless the
 caller passes ``"cpu"``.
+
+Data parallel (``mesh=``, a process group's mesh, ``parallel/mesh.py``):
+one process per card, each with its part of the global batch
+(``TripletLoader(mesh=...)``). BatchNorm takes the global batch's
+statistics (``models/unet.py:batch_norm``); a step all-reduces every
+gradient and the loss once, as one buffer, to their mean over the ranks,
+so every rank applies the same update and the NaN guard takes the same
+branch everywhere; validation all-reduces sums and counts, so a global
+batch gives the single-process numbers, a padded last batch included.
+The parameters stay the same on every rank, so EMA and Adam need nothing
+more.
 """
 
 from __future__ import annotations
@@ -30,6 +41,7 @@ from typing import Callable, Dict, Iterable, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..config import LossConfig, TrainConfig
 from ..infer.engine import resolve_device
@@ -37,9 +49,11 @@ from ..models.flow import FlowInterpolator
 from ..ops.census import census_loss
 from ..ops.image import denormalize_to_uint8, normalize_uint8
 from ..ops.psnr import psnr
-from ..ops.ssim import combined_loss
+from ..ops.ssim import combined_loss, ssim_loss_map
 from ..ops.ssim_fused import ssim_eval_auto
 from ..ops.warp import backward_warp
+from ..parallel.mesh import Mesh, group_mesh
+from ..parallel.sharding import put_replicated
 
 
 @dataclasses.dataclass
@@ -207,14 +221,31 @@ def _grads(model: torch.nn.Module, batch: Mapping[str, torch.Tensor],
 
 
 def _on(batch: Mapping, device: torch.device) -> Dict[str, torch.Tensor]:
-    """The batch's uint8 arrays as tensors on ``device``."""
+    """The batch's arrays as tensors on ``device``."""
     return {k: torch.as_tensor(v).to(device, non_blocking=True)
             for k, v in batch.items()}
 
 
+def _mean_over_ranks(params: List[torch.nn.Parameter], loss: torch.Tensor,
+                     mesh: Mesh) -> torch.Tensor:
+    """Every parameter's ``.grad`` and the loss averaged over the ranks by
+    one all-reduce of one flat buffer; returns the mean loss."""
+    grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+             for p in params]
+    flat = torch.cat([g.reshape(-1) for g in grads] + [loss.reshape(1)])
+    dist.all_reduce(flat)
+    flat /= mesh.world_size
+    at = 0
+    for p in params:
+        p.grad = flat[at:at + p.numel()].view_as(p)
+        at += p.numel()
+    return flat[-1]
+
+
 def train_step(state: TrainState, batch: Mapping[str, torch.Tensor],
                loss_cfg: LossConfig, ema_decay: float = 0.0,
-               grad_accum: int = 1) -> Tuple[TrainState, torch.Tensor]:
+               grad_accum: int = 1, mesh: Optional[Mesh] = None
+               ) -> Tuple[TrainState, torch.Tensor]:
     """One optimizer step; returns ``(state, loss)``, the loss a 0-d tensor
     on the device.
 
@@ -222,7 +253,23 @@ def train_step(state: TrainState, batch: Mapping[str, torch.Tensor],
     non-finite loss the gradients become zeros and Adam still steps on
     them (its moments decay and its step count advances, as optax's state
     does), then the parameters and the BatchNorm running statistics return
-    to their values before the step. ``step`` counts every call."""
+    to their values before the step. ``step`` counts every call.
+
+    With a process group's ``mesh`` the batch is this rank's part of the
+    global batch, in ``parallel.sharding.shard_items``'s order, and the
+    loss returned is the global batch's."""
+    mesh = group_mesh(mesh)
+    if mesh is not None:
+        if "valid" in batch:
+            raise ValueError("a padded batch (its global size does not "
+                             "divide across the ranks) cannot train: use "
+                             "drop_remainder and a batch the ranks divide")
+        b = next(iter(batch.values())).shape[0]
+        if b % grad_accum:
+            raise ValueError(
+                f"grad_accum {grad_accum}: a microbatch of the global batch "
+                f"{b * mesh.world_size} does not divide across "
+                f"{mesh.world_size} ranks")
     model = state.model
     device = next(model.parameters()).device
     batch = _on(batch, device)
@@ -231,6 +278,8 @@ def train_step(state: TrainState, batch: Mapping[str, torch.Tensor],
     with torch.no_grad():
         before = [t.clone() for t in params + buffers]
     loss = _grads(model, batch, loss_cfg, grad_accum)
+    if mesh is not None:
+        loss = _mean_over_ranks(params, loss, mesh)
     ok = torch.isfinite(loss)
     with torch.no_grad():
         for p in params:
@@ -266,28 +315,60 @@ def _scored_model(state: TrainState, use_ema: bool) -> torch.nn.Module:
 
 
 def eval_step(state: TrainState, batch: Mapping[str, torch.Tensor],
-              loss_cfg: LossConfig, use_ema: bool = False
-              ) -> Dict[str, torch.Tensor]:
+              loss_cfg: LossConfig, use_ema: bool = False,
+              mesh: Optional[Mesh] = None) -> Dict[str, torch.Tensor]:
     """Validation of one batch: the combined loss, and the mean PSNR and
     skimage SSIM of the uint8 prediction against the uint8 ground truth
     (0-d tensors on the device). The inference forward, BatchNorm unfolded
     on its running statistics; with ``use_ema`` the EMA weights are scored
-    (they are what exports)."""
+    (they are what exports).
+
+    The numbers are sums over the items divided by their count (the
+    combined loss from each item's MSE and mean SSIM map, which is the
+    batch's for items of one size). With a process group's ``mesh`` the
+    sums and counts are all-reduced, so the global batch's numbers come
+    out on every rank; items the batch's ``valid`` mask marks as padding
+    (``TripletLoader(mesh=...)``'s last batch) count nowhere."""
+    mesh = group_mesh(mesh)
     model = _scored_model(state, use_ema)
     device = next(model.parameters()).device
-    batch = _on(batch, device)
+    valid = batch.get("valid")
+    batch = _on({k: batch[k] for k in ("f0", "f1", "gt")}, device)
     with torch.no_grad():
         f0 = normalize_uint8(batch["f0"])
         f1 = normalize_uint8(batch["f1"])
         gt = normalize_uint8(batch["gt"])
-        pred = _nhwc(model(_nchw(f0), _nchw(f1)))
-        loss = combined_loss(pred, gt, loss_cfg.mse_weight,
-                             loss_cfg.ssim_weight, loss_cfg.ssim_window,
-                             loss_cfg.ssim_sigma)
+        pred = _nhwc(model(_nchw(f0), _nchw(f1))).float()
+        dims = (1, 2, 3)
+        mse = torch.mean((pred - gt.float()) ** 2, dims)
+        ssim_map = torch.mean(ssim_loss_map(pred, gt, loss_cfg.ssim_window,
+                                            loss_cfg.ssim_sigma), dims)
         pred_u8 = denormalize_to_uint8(pred)
-        return {"loss": loss,
-                "psnr": torch.mean(psnr(pred_u8, batch["gt"])),
-                "ssim": torch.mean(ssim_eval_auto(pred_u8, batch["gt"]))}
+        w = torch.ones_like(mse) if valid is None else \
+            torch.as_tensor(valid).to(device, torch.float32)
+        sums = torch.stack([
+            (mse * w).sum(), (ssim_map * w).sum(),
+            (psnr(pred_u8, batch["gt"]) * w).sum(),
+            (ssim_eval_auto(pred_u8, batch["gt"]) * w).sum(), w.sum()])
+        if mesh is not None:
+            dist.all_reduce(sums)
+        mean = sums[:4] / sums[4]
+        loss = loss_cfg.mse_weight * mean[0] + \
+            loss_cfg.ssim_weight * (1.0 - mean[1])
+        return {"loss": loss, "psnr": mean[2], "ssim": mean[3]}
+
+
+def _broadcast_state(state: TrainState, mesh: Mesh) -> None:
+    """Rank 0's parameters, buffers, EMA and Adam moments on every rank,
+    in place (Adam's step counts stay on the host, the same everywhere)."""
+    tensors = dict(state.model.state_dict())
+    if state.ema_params is not None:
+        tensors.update({f"ema.{k}": v for k, v in state.ema_params.items()})
+    for i, s in enumerate(state.tx.state.values()):
+        tensors.update({f"adam.{i}.{k}": v for k, v in s.items()
+                        if k != "step"})
+    put_replicated(tensors, mesh)
+    state._scored = None
 
 
 @dataclasses.dataclass
@@ -326,15 +407,24 @@ def train_model(model: torch.nn.Module,
                 cfg: TrainConfig, device=None,
                 checkpointer=None, log_fn: Callable[[str], None] = print,
                 start_epoch: int = 0, state: Optional[TrainState] = None,
-                history: Optional[History] = None
+                history: Optional[History] = None, mesh: Optional[Mesh] = None
                 ) -> Tuple[TrainState, History]:
     """The epoch loop: train steps, a validation phase, the plateau
     schedule, best and latest checkpoints (``save_every``), on ``device``
     (the card unless ``"cpu"``). A resume passes the restored ``state``,
     ``start_epoch`` and ``history``; the plateau replays the history, and a
     loader with ``set_epoch`` (``TripletLoader``) is set to each epoch, so
-    a resumed run sees the batches the uninterrupted one would."""
-    device = resolve_device(device)
+    a resumed run sees the batches the uninterrupted one would.
+
+    With a process group's ``mesh`` (whose card replaces ``device``) the
+    loaders yield this rank's parts of the global batches, the initial or
+    resumed state is broadcast from rank 0, the steps run data parallel,
+    every rank keeps the same history, and rank 0 alone logs (the
+    checkpointer writes on rank 0 alone)."""
+    mesh = group_mesh(mesh)
+    device = mesh.device if mesh is not None else resolve_device(device)
+    if mesh is not None and mesh.rank != 0:
+        log_fn = lambda line: None  # noqa: E731
     try:
         if len(train_loader) == 0:
             raise ValueError(
@@ -345,6 +435,8 @@ def train_model(model: torch.nn.Module,
         pass  # plain iterables without __len__
     if state is None:
         state = create_train_state(model, variables, cfg, device)
+    if mesh is not None:
+        _broadcast_state(state, mesh)
     history = history or History()
     sched = PlateauScheduler(cfg.plateau_factor, cfg.plateau_patience)
     for past in history.val_loss:          # resume: replay the plateau
@@ -360,7 +452,7 @@ def train_model(model: torch.nn.Module,
         for batch in train_loader:
             state, loss = train_step(state, batch, loss_cfg,
                                      ema_decay=cfg.ema_decay,
-                                     grad_accum=cfg.grad_accum)
+                                     grad_accum=cfg.grad_accum, mesh=mesh)
             train_losses.append(loss)
         train_loss = float(np.mean([float(x) for x in train_losses])) \
             if train_losses else float("nan")
@@ -368,7 +460,7 @@ def train_model(model: torch.nn.Module,
         val_metrics = {"loss": [], "psnr": [], "ssim": []}
         use_ema = cfg.ema_decay > 0 and state.ema_params is not None
         for batch in val_loader:
-            m = eval_step(state, batch, loss_cfg, use_ema=use_ema)
+            m = eval_step(state, batch, loss_cfg, use_ema=use_ema, mesh=mesh)
             for k in val_metrics:
                 val_metrics[k].append(float(m[k]))
         val_loss = float(np.mean(val_metrics["loss"])) if val_metrics["loss"] \

@@ -167,10 +167,29 @@ Drives the port only (it imports nothing of JAX or of the JAX package):
    calls) and printed beside phase 5's production flow engine and the
    card's name and power limit.
 
+12. data parallel on the one card (after 11): a process group of one
+   rank on NCCL through the distributed code (the production U-Net's
+   train step at 256x256 b8 bit for bit the step without a mesh, under
+   deterministic algorithms for the comparison; its ``eval_step`` with
+   one head and one SSIM launch; both steps timed in turns, samples/s);
+   two ranks spawned on the one card over gloo with CUDA tensors, each
+   step (plain, ``grad_accum=2`` with EMA) on the global b8 against the
+   step in one process: computing in f64, loss and BatchNorm statistics
+   within 1e-6 relative and every parameter's gradient within 1e-5 of
+   its largest; computing in f32, loss and statistics within 1e-6 and
+   the gradients' relative L2 error against f64 within 3x the
+   one-process f32 steps' (cuDNN's convs and PyTorch's own), each
+   parameter's read; both ranks holding the same state); ``cli train
+   --num-devices`` one more
+   than the visible cards refused with JAX's error; the production
+   U-Net and flow engines with two replicas on cuda:0 within 1 LSB of
+   the unmeshed engines at b8 1080p, each replica launching the head
+   (and the sampler) once, both timed.
+
 Besides each kernel's launch counter, the wrappers that pick a route
 (``refine_head``, ``double_conv_fused``, ``up_double_conv_fused``) count
 their launches under it (``.routes``); the kernels line reads those counts
-over the main-path runs of phases 3, 4 and 6-11.
+over the main-path runs of phases 3, 4 and 6-12.
 
 Any failure raises and exits non-zero. It prints the kernel record as one
 JSON line before the last, and as the last line
@@ -194,7 +213,12 @@ import time
 import zlib
 
 import numpy as np
-import torch
+
+# what cuBLAS needs for deterministic algorithms (phase 12), read when its
+# first handle is made
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
+import torch  # noqa: E402
 
 H100_BF16_FLOPS = 989e12       # dense bf16 tensor-core peak, FLOP/s
 H100_HBM_BYTES = 3.35e12       # HBM3 bandwidth, B/s
@@ -1494,9 +1518,9 @@ def unet_options(f1, f2, smi) -> dict:
         packed = []
         build_packed = engine._packed_core
 
-        def counted(build=build_packed, calls=packed):
+        def counted(model, build=build_packed, calls=packed):
             calls.append(1)
-            return build()
+            return build(model)
 
         engine._packed_core = counted
         reset_counts()
@@ -1582,6 +1606,419 @@ def options_path(record, smi, flow_fps) -> dict:
           flush=True)
     out["launches"] = dict(out["launches"])
     record["options"] = out
+    return out
+
+
+# phase 12: data parallel on the one card, at phase 8's size
+DP_STEPS = {"plain": {}, "grad_accum_and_ema": dict(grad_accum=2,
+                                                    ema_decay=0.9)}
+DP_REL_BOUND = 1e-6            # the loss and the BatchNorm statistics
+# computing in f64 (parameters, gradients and the loss stay f32), the two
+# ranks' step is held to the one-process step at the CPU tests' bound:
+# each parameter's gradient within DP_F64_BOUND of its largest value
+DP_F64_BOUND = 1e-5
+# computing in f32 (TF32 off), the whole gradient's relative L2 error
+# against the f64 one-process step within DP_GRAD_NOISE times the
+# one-process f32 steps' own (cuDNN's convs and PyTorch's), floor 1e-5.
+# Per parameter f32 is only read: at the ranks' per-call batch cuDNN's
+# f32 algorithm moves a deep conv's gradient ten times further from f64
+# than at the one-process batch (PERF.md, PR 15)
+DP_GRAD_NOISE = 3.0
+DP_GRAD_FLOOR = 1e-5
+# a fault the two-rank check must catch (scripts/torch_dp_train.py
+# --fault): the BatchNorm sums' backward without its all-reduce, each rank
+# then taking only its own items' share of the global statistics' gradient
+DP_FAULTS = ("local_batchnorm_backward",)
+
+
+def dp_batch(seed) -> dict:
+    """A global b8 256x256 uint8 batch: two ``frames`` and their mean."""
+    f0, f1 = frames(TRAIN_BATCH, TRAIN_HW, TRAIN_HW, seed)
+    gt = ((f0.astype(np.uint16) + f1) // 2).astype(np.uint8)
+    return {"f0": f0, "f1": f1, "gt": gt}
+
+
+def dp_state(weights, kw, dtype):
+    """A train state of the production U-Net on ``weights`` computing in
+    ``dtype``, with ``kw``'s EMA."""
+    from ai_based_frame_interpolation_torch.config import (
+        ModelConfig, TrainConfig)
+    from ai_based_frame_interpolation_torch.models import build_model
+    from ai_based_frame_interpolation_torch.train.loop import (
+        create_train_state)
+
+    model = build_model(ModelConfig(**PROD), dtype)
+    model.load_state_dict(weights)
+    return create_train_state(model, None, TrainConfig(
+        batch_size=TRAIN_BATCH, learning_rate=1e-4,
+        ema_decay=kw.get("ema_decay", 0.0)))
+
+
+def dp_step(state, batch, kw, mesh=None):
+    from ai_based_frame_interpolation_torch.config import LossConfig
+    from ai_based_frame_interpolation_torch.train.loop import train_step
+
+    return train_step(state, batch, LossConfig(),
+                      ema_decay=kw.get("ema_decay", 0.0),
+                      grad_accum=kw.get("grad_accum", 1), mesh=mesh)
+
+
+def dp_record(state, loss) -> dict:
+    """A step's loss, gradients, parameters, statistics and EMA, on the
+    host."""
+    model = state.model
+    return {"loss": float(loss),
+            "grads": {n: p.grad.cpu() for n, p in model.named_parameters()},
+            "params": {n: p.detach().cpu() for n, p in
+                       model.named_parameters()},
+            "stats": {n: b.cpu() for n, b in model.named_buffers()
+                      if "running" in n},
+            "ema": {n: e.cpu() for n, e in (state.ema_params or {}).items()}}
+
+
+def dp_worker(rank, root, port, fault=None) -> None:
+    """Rank ``rank`` of two on the one card, over gloo with CUDA tensors:
+    each ``DP_STEPS`` step on its part of the global batch, computing in
+    f32 (TF32 off) and in f64, with ``fault`` (one of ``DP_FAULTS``)
+    injected if given; its records to ``<root>/rank<rank>.pt``."""
+    import torch.distributed as dist
+
+    from ai_based_frame_interpolation_torch.parallel import (
+        make_mesh, shard_items)
+    from ai_based_frame_interpolation_torch.parallel.sharding import (
+        replicas_agree)
+
+    if fault == "local_batchnorm_backward":
+        from ai_based_frame_interpolation_torch.models import unet
+
+        unet._SumOverRanks.backward = staticmethod(lambda ctx, g: g)
+    elif fault is not None:
+        raise ValueError(f"unknown fault {fault!r}: one of {DP_FAULTS}")
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=2, rank=rank)
+    try:
+        inputs = torch.load(os.path.join(root, "inputs.pt"))
+        mesh = make_mesh(devices=["cuda:0", "cuda:0"])
+        out = {}
+        with no_tf32():
+            for name, kw in DP_STEPS.items():
+                idx, _ = shard_items(TRAIN_BATCH, mesh,
+                                     kw.get("grad_accum", 1))
+                part = {k: v[torch.from_numpy(idx)].cuda()
+                        for k, v in inputs["batch"].items()}
+                for dtype, cudnn in ((torch.float32, True),
+                                     (torch.float64, True),
+                                     (torch.float32, False)):
+                    torch.backends.cudnn.enabled = cudnn
+                    try:
+                        state = dp_state(inputs["weights"], kw, dtype)
+                        state, loss = dp_step(state, part, kw, mesh)
+                    finally:
+                        torch.backends.cudnn.enabled = True
+                    rec = dp_record(state, loss)
+                    rec["agree"] = replicas_agree(
+                        list(state.model.state_dict().values())
+                        + list((state.ema_params or {}).values()), mesh)
+                    out[name, str(dtype) + ("" if cudnn else " native")] \
+                        = rec
+        torch.save(out, os.path.join(root, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def rel_err(got, want) -> float:
+    return float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
+
+
+def l2_err(got: dict, want: dict) -> float:
+    """The relative L2 error of a dict of tensors taken as one vector."""
+    d = torch.cat([(got[k] - want[k]).reshape(-1) for k in want])
+    return float(d.norm() / torch.cat([w.reshape(-1)
+                                       for w in want.values()]).norm())
+
+
+def dp_one_process(weights, batch) -> dict:
+    """Per ``DP_STEPS`` step, the one-process step on the global batch
+    computing in f64 (``truth``) and in f32 (TF32 off) with cuDNN's convs
+    (``single``) and with PyTorch's own (``native``)."""
+    out = {}
+    with no_tf32():
+        dev = {k: v.cuda() for k, v in batch.items()}
+        for name, kw in DP_STEPS.items():
+            def step(dtype=torch.float32):
+                return dp_record(*dp_step(dp_state(weights, kw, dtype), dev,
+                                          kw))
+            rec = {"truth": step(torch.float64), "single": step()}
+            torch.backends.cudnn.enabled = False
+            try:
+                rec["native"] = step()
+            finally:
+                torch.backends.cudnn.enabled = True
+            out[name] = rec
+    return out
+
+
+def leaf_errs(got: dict, want: dict) -> dict:
+    """Each gradient's largest error against its largest value."""
+    return {k: rel_err(got["grads"][k], w) for k, w in want["grads"].items()}
+
+
+def dp_two_ranks(smi, fault=None) -> dict:
+    """Two ranks on the one card over gloo against the one-process step on
+    the same global b8 (``dp_one_process``): computing in f64, the loss and
+    the BatchNorm running statistics within ``DP_REL_BOUND`` relative and
+    each parameter's gradient within ``DP_F64_BOUND`` of its largest;
+    computing in f32, the loss and statistics within ``DP_REL_BOUND`` and
+    the whole gradient within ``DP_GRAD_NOISE`` (each parameter read, and
+    read again with cuDNN off in the ranks); every rank holding rank 0's
+    state bit for bit. ``fault`` (``DP_FAULTS``) is injected into the
+    ranks. Returns the readings, each step's ``ok`` among them; the
+    caller asserts."""
+    import torch.multiprocessing as mp
+
+    from ai_based_frame_interpolation_torch.parallel import free_port
+
+    weights = train_model_of(PROD, 7).state_dict()
+    batch = {k: torch.from_numpy(v) for k, v in dp_batch(61).items()}
+    out = {}
+    with tempfile.TemporaryDirectory() as root:
+        torch.save({"weights": weights, "batch": batch},
+                   os.path.join(root, "inputs.pt"))
+        t0 = time.perf_counter()
+        ranks = mp.spawn(dp_worker, args=(root, free_port(), fault),
+                         nprocs=2, join=False)
+        ref = dp_one_process(weights, batch)
+        while not ranks.join():
+            pass
+        out["ranks_s"] = time.perf_counter() - t0
+        got = [torch.load(os.path.join(root, f"rank{r}.pt")) for r in (0, 1)]
+    f32, f64 = str(torch.float32), str(torch.float64)
+    for name in DP_STEPS:
+        truth, w = ref[name]["truth"], ref[name]["single"]
+        g64, g32 = got[0][name, f64], got[0][name, f32]
+        e64 = leaf_errs(g64, truth)
+        leaf64 = max(e64, key=e64.get)
+        loss64 = abs(g64["loss"] - truth["loss"]) / abs(truth["loss"])
+        stats64 = max(rel_err(g64["stats"][k], truth["stats"][k])
+                      for k in truth["stats"])
+        # f32: errors against the f64 step, beside the one-process f32
+        # steps' own
+        own = {o: leaf_errs(ref[name][o], truth) for o in ("single",
+                                                           "native")}
+        e32 = leaf_errs(g32, truth)
+        e_nat = leaf_errs(got[0][name, f32 + " native"], truth)
+        ratio = {k: e32[k] / max(own["single"][k], own["native"][k],
+                                 DP_GRAD_FLOOR) for k in e32}
+        leaf = max(ratio, key=ratio.get)
+        grad = l2_err(g32["grads"], truth["grads"])
+        noise = max(max(l2_err(ref[name][o]["grads"], truth["grads"])
+                        for o in own), DP_GRAD_FLOOR)
+        loss = abs(g32["loss"] - w["loss"]) / abs(w["loss"])
+        stats = max(rel_err(g32["stats"][k], w["stats"][k])
+                    for k in w["stats"])
+        agree = all(r[k]["agree"] and r[k]["loss"] == got[0][k]["loss"]
+                    for r in got for k in r if k[0] == name)
+        ok = (loss64 <= DP_REL_BOUND and stats64 <= DP_REL_BOUND
+              and e64[leaf64] <= DP_F64_BOUND and loss <= DP_REL_BOUND
+              and stats <= DP_REL_BOUND and grad <= DP_GRAD_NOISE * noise
+              and agree)
+        out[name] = {
+            "f64_leaf_worst_err": e64[leaf64], "f64_leaf_worst": leaf64,
+            "f64_loss_rel_err": loss64, "f64_stats_rel_err": stats64,
+            "f32_grad_l2_vs_f64": grad, "f32_grad_l2_one_process": noise,
+            "f32_loss_rel_err": loss, "f32_stats_rel_err": stats,
+            "f32_leaf_worst_ratio": ratio[leaf], "f32_leaf_worst": leaf,
+            "f32_leaf_worst_err": e32[leaf],
+            "f32_leaf_worst_one_process": {o: v[leaf]
+                                           for o, v in own.items()},
+            "f32_leaf_worst_ranks_native": e_nat[leaf],
+            "ranks_agree": agree, "loss": g32["loss"], "ok": ok,
+            "fault": fault}
+        tag = f" FAULT {fault}" if fault else ""
+        print(f"[{smi}] data parallel {name}{tag}: 2 ranks on cuda:0 over "
+              f"gloo vs one process at b{TRAIN_BATCH} {TRAIN_HW}x{TRAIN_HW}."
+              f" f64: loss {loss64:.3g}, BatchNorm statistics {stats64:.3g} "
+              f"relative, gradients at most {e64[leaf64]:.3g} of their "
+              f"largest ({leaf64}). f32 (TF32 off): loss {loss:.3g}, "
+              f"statistics {stats:.3g}; gradients' L2 against f64 "
+              f"{grad:.3g} (one process up to {noise:.3g}); per parameter "
+              f"against f64, worst {ratio[leaf]:.3g}x the one process's "
+              f"({leaf}: {e32[leaf]:.3g}; one process "
+              f"{own['single'][leaf]:.3g} cuDNN, {own['native'][leaf]:.3g} "
+              f"PyTorch's convs; the ranks with PyTorch's convs "
+              f"{e_nat[leaf]:.3g}); ranks agree {agree}; ok {ok}",
+              flush=True)
+    return out
+
+
+def same_state(a, b) -> bool:
+    sa, sb = a.model.state_dict(), b.model.state_dict()
+    return all(torch.equal(sa[k], sb[k]) for k in sa) and all(
+        torch.equal(a.ema_params[k], b.ema_params[k]) for k in a.ema_params)
+
+
+def dp_world_one(smi) -> dict:
+    """A process group of one rank on NCCL through the distributed code:
+    the production U-Net's step (bf16, phase 8's config) bit for bit the
+    step without a mesh (deterministic algorithms for the comparison: the
+    step is not bit for bit itself without them; cuBLAS's workspace set
+    for them at import), its ``eval_step`` on the kernels, and both steps
+    timed in turns."""
+    import torch.distributed as dist
+
+    from ai_based_frame_interpolation_torch.config import TrainConfig
+    from ai_based_frame_interpolation_torch.parallel import (
+        free_port, make_mesh)
+    from ai_based_frame_interpolation_torch.train.loop import (
+        create_train_state, eval_step, train_step)
+
+    tcfg = TrainConfig(batch_size=TRAIN_BATCH, learning_rate=1e-4,
+                       ema_decay=0.9)
+    dev = {k: torch.from_numpy(v).cuda() for k, v in dp_batch(62).items()}
+    out = {}
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                            f"{free_port()}", world_size=1, rank=0)
+    try:
+        mesh = make_mesh()
+        assert mesh.grouped and mesh.size == 1, mesh
+        saved = (torch.backends.cudnn.deterministic,
+                 torch.backends.cudnn.benchmark,
+                 torch.are_deterministic_algorithms_enabled())
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
+        torch.use_deterministic_algorithms(True)
+        try:
+            states = [create_train_state(train_model_of(PROD, 6), None, tcfg)
+                      for _ in range(3)]
+            losses = []
+            reset_counts()
+            for state, m in zip(states, (None, None, mesh)):
+                _, loss = train_step(state, dev, tcfg.loss,
+                                     ema_decay=tcfg.ema_decay, mesh=m)
+                losses.append(loss)
+            assert counts() == NO_LAUNCHES and not route_counts()
+        finally:
+            (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark) = saved[:2]
+            torch.use_deterministic_algorithms(saved[2])
+        repeat = same_state(states[0], states[1])
+        bit = same_state(states[0], states[2]) and \
+            torch.equal(losses[0], losses[2])
+        print(f"[{smi}] data parallel, world size 1 on NCCL: the "
+              f"distributed step bit for bit the plain one {bit} (the plain "
+              f"step bit for bit itself {repeat}); loss {float(losses[2]):.6f}",
+              flush=True)
+        assert repeat and bit
+        out["bit_for_bit"] = bit
+        reset_counts()
+        got = eval_step(states[2], dev, tcfg.loss, use_ema=True, mesh=mesh)
+        launches = main_counts()
+        want = eval_step(states[0], dev, tcfg.loss, use_ema=True)
+        diff = {k: abs(float(got[k]) - float(want[k])) for k in got}
+        print(f"[{smi}] data parallel, world size 1: eval_step launches "
+              f"{launches}; vs the plain eval_step {diff}", flush=True)
+        assert launches == dict(NO_LAUNCHES, refine_head=1, ssim_eval=1), \
+            launches
+        assert diff["loss"] <= 1e-6 and diff["ssim"] <= 1e-6 and \
+            diff["psnr"] <= PSNR_BOUND_DB, diff
+        out["eval_launches"] = launches
+        out["eval_diff_vs_plain"] = diff
+        times = {}
+        for label, state, m in (("plain", states[0], None),
+                                ("world1", states[2], mesh),
+                                ("world1_again", states[2], mesh),
+                                ("plain_again", states[0], None)):
+            ms = cuda_ms(lambda: train_step(state, dev, tcfg.loss,
+                                            ema_decay=tcfg.ema_decay,
+                                            mesh=m), TRAIN_TIMED_STEPS)
+            times[label] = {"ms": ms, "samples_per_s": TRAIN_BATCH * 1e3 / ms}
+        out["times"] = times
+        print(f"[{smi}] data parallel, world size 1: train step b"
+              f"{TRAIN_BATCH} {TRAIN_HW}x{TRAIN_HW} bf16, samples/s plain "
+              f"{times['plain']['samples_per_s']:.1f} / distributed "
+              f"{times['world1']['samples_per_s']:.1f} / distributed "
+              f"{times['world1_again']['samples_per_s']:.1f} / plain "
+              f"{times['plain_again']['samples_per_s']:.1f}", flush=True)
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+def dp_cli_refused() -> dict:
+    """``cli train --num-devices`` one more than the visible cards exits 1
+    with JAX's ``make_mesh`` error before it starts a process."""
+    import io
+
+    n = torch.cuda.device_count() + 1
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        rc, _ = cli_main(["train", "--data-dir", "no-such-dir",
+                          "--num-devices", str(n)])
+    text = err.getvalue().strip()
+    print(f"cli train --num-devices {n}: exit code {rc}, {text!r}",
+          flush=True)
+    assert rc == 1 and f"requested {n} devices, only {n - 1} visible" in \
+        text, (rc, text)
+    return {"num_devices": n, "exit_code": rc, "stderr": text}
+
+
+def dp_engines(smi) -> dict:
+    """The production U-Net and flow engines with two replicas on cuda:0
+    (a mesh of two cards that are one) against the unmeshed engines at
+    b8 1080p: each replica's chunk of 4 launches the head (and the
+    sampler) once; both timed (``time_engine``)."""
+    from ai_based_frame_interpolation_torch.config import ModelConfig
+    from ai_based_frame_interpolation_torch.infer.engine import (
+        InterpolationEngine)
+    from ai_based_frame_interpolation_torch.parallel import make_mesh
+
+    mesh = make_mesh(devices=["cuda:0", "cuda:0"])
+    f1, f2 = frames(8, 1080, 1920, seed=51)
+    out, launches = {}, collections.Counter()
+    for name, kw, seed, per_replica in (
+            ("unet", PROD, 52, dict(refine_head=1)),
+            ("flow", FLOW_PROD, 53, dict(refine_head=1, sample_fused=1))):
+        cfg = ModelConfig(**kw)
+        plain = InterpolationEngine.random_init(cfg, seed=seed)
+        meshed = InterpolationEngine.random_init(cfg, seed=seed, mesh=mesh)
+        want = plain.interpolate_batch(f1, f2)
+        reset_counts()
+        got = meshed.interpolate_batch(f1, f2)
+        counted = main_counts()
+        diff = np.abs(got.astype(np.int16) - want.astype(np.int16))
+        rec = {"launches": counted, "max_uint8_diff": int(diff.max()),
+               "share_over_1": float((diff > 1).mean())}
+        rec.update(time_engine(plain, f"{name}_plain", smi, ((8, 5),)))
+        rec.update(time_engine(meshed, f"{name}_mesh2", smi, ((8, 5),)))
+        print(f"[{smi}] data parallel engine {name}: 2 replicas on cuda:0 "
+              f"vs unmeshed at b8 1080p: max uint8 diff {rec['max_uint8_diff']}"
+              f" ({rec['share_over_1']:.3g} of pixels over 1); launches "
+              f"{counted}", flush=True)
+        assert counted == dict(NO_LAUNCHES, **{
+            k: 2 * v for k, v in per_replica.items()}), counted
+        assert rec["max_uint8_diff"] <= 1, rec
+        launches[f"refine_head_{'w64' if name == 'unet' else 'w16'}"] += \
+            counted["refine_head"]
+        launches["sample_fused"] += counted["sample_fused"]
+        out[name] = rec
+        del plain, meshed
+    out["launches"] = dict(launches)
+    return out
+
+
+def parallel_path(record, smi) -> dict:
+    """Phase 12 (module docstring): data parallel on the one card."""
+    out = {"world_one": dp_world_one(smi)}
+    out["two_ranks"] = dp_two_ranks(smi)
+    assert all(out["two_ranks"][k]["ok"] for k in DP_STEPS), out["two_ranks"]
+    out["cli_refused"] = dp_cli_refused()
+    out["engines"] = dp_engines(smi)
+    ev = out["world_one"]["eval_launches"]
+    launches = collections.Counter(out["engines"]["launches"])
+    launches["refine_head_w64"] += ev["refine_head"]
+    launches["ssim_eval"] += ev["ssim_eval"]
+    out["launches"] = dict(launches)
+    record["parallel"] = out
     return out
 
 
@@ -3469,6 +3906,8 @@ def main() -> int:
     record["timings"] = timings
     # 11. the model options, after 5 freed the other engines
     options = options_path(record, smi, timings["flow_b8"]["output_fps"])
+    parallel = parallel_path(record, smi)                       # 12.
+    dp_launches = collections.Counter(parallel["launches"])
     record["seconds"] = time.perf_counter() - t_start
 
     src = "ai_based_frame_interpolation_torch/csrc/"
@@ -3485,26 +3924,29 @@ def main() -> int:
              + val_launches["refine_head"]
              + train["export"]["launches"]["refine_head"]
              + served["refine_head_w64"]
-             + options["launches"]["refine_head_w64"],
+             + options["launches"]["refine_head_w64"]
+             + dp_launches["refine_head_w64"],
              record["refine_head_w64_max_abs_err"],
              "refine_head_w64_1088x1920"),
             ("refine_head_w16", "refine_head.cu", "refine_fused.py:417",
              flow_launches["refine_head"]
              + video_routes["refine_head w16/w16/bfloat16"]
              + flow_val["refine_head"] + served["refine_head_w16"]
-             + options["launches"]["refine_head_w16"],
+             + options["launches"]["refine_head_w16"]
+             + dp_launches["refine_head_w16"],
              record["refine_head_w16_max_abs_err"],
              "refine_head_w16_1088x1920"),
             ("sample_fused", "sample_fused.cu", "warp_fused.py:183",
              flow_launches["sample_fused"]
              + video["flow_retime_2.5"]["launches"]["sample_fused"]
              + flow_val["sample_fused"] + served["sample_fused"]
-             + options["launches"]["sample_fused"],
+             + options["launches"]["sample_fused"]
+             + dp_launches["sample_fused"],
              record["sample_fused_max_abs_err"], "sample_fused_1088x1920"),
             ("ssim_eval_256", "ssim_eval.cu", "ssim_fused.py:63",
              evals["unet_256"]["launches"]["ssim_eval"]
              + val_launches["ssim_eval"] + flow_val["ssim_eval"]
-             + served["ssim_eval"],
+             + served["ssim_eval"] + dp_launches["ssim_eval"],
              ssim_errs["8x256x256"], "ssim_eval_8x256x256"),
             ("ssim_eval_1080", "ssim_eval.cu", "ssim_fused.py:169",
              evals["unet_1080"]["launches"]["ssim_eval"],

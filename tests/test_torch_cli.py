@@ -190,11 +190,14 @@ def test_train_flow_options_then_infer_the_export(tmp_path, capsys):
     assert img.shape == (32, 32, 1) and img.dtype == np.uint8
 
 
-def test_num_devices_above_one_raises_naming_data_parallel(tmp_path):
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP Queue A, data parallel"):
-        t_cli.main(["train", "--data-dir", str(tmp_path), "--num-devices",
-                    "2"] + CPU)
+def test_num_devices_above_one_raises_naming_data_parallel(
+        tmp_path, monkeypatch, capsys):
+    # data parallel runs one process per card: more cards than are
+    # visible exit 1 with JAX make_mesh's error, before any process starts
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    assert t_cli.main(["train", "--data-dir", str(tmp_path), "--device",
+                       "cuda", "--num-devices", "2"]) == 1
+    assert "requested 2 devices, only 1 visible" in capsys.readouterr().err
 
 
 def test_serve_core_impl_pallas_at_an_ineligible_shape_exits_1(

@@ -1,6 +1,7 @@
 """The port stands alone: it imports neither JAX nor the JAX package."""
 
 import ast
+import json
 import pathlib
 import subprocess
 import sys
@@ -13,9 +14,18 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax",
              "ai_based_frame_interpolation_tpu")
 
 
-def test_importing_the_port_loads_no_jax():
-    code = (
-        "import sys\n"
+# the imports and runs of the checks below, in the order one interpreter
+# takes them (:func:`loaded`); a step's check sees what it and every step
+# before it loaded, so a step that passes loads none of its names alone
+STEPS = {
+    # first: each of these imports the one before it, so each check is the
+    # check of a fresh interpreter
+    "parallel.mesh":
+        "import ai_based_frame_interpolation_torch.parallel.mesh\n",
+    "parallel.sharding":
+        "import ai_based_frame_interpolation_torch.parallel.sharding\n",
+    "parallel": "import ai_based_frame_interpolation_torch.parallel\n",
+    "port": (
         "import ai_based_frame_interpolation_torch.infer.engine\n"
         "import ai_based_frame_interpolation_torch.serve.batcher\n"
         "import ai_based_frame_interpolation_torch.ops.refine\n"
@@ -31,37 +41,15 @@ def test_importing_the_port_loads_no_jax():
         "import ai_based_frame_interpolation_torch.train.loop\n"
         "import ai_based_frame_interpolation_torch.train.checkpoint\n"
         "import ai_based_frame_interpolation_torch.data.loader\n"
-        "import ai_based_frame_interpolation_torch.ops.polyphase\n"
-        f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
-        "assert not bad, bad\n")
-    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
-                          capture_output=True, text=True, timeout=120)
-    assert proc.returncode == 0, proc.stderr
-
-
-def test_the_eval_path_loads_no_jax_opencv_pandas_or_plots():
-    # the card's machine has none of these: an import would fail only there
-    absent = FORBIDDEN + ("cv2", "pandas", "matplotlib", "PIL")
-    code = (
-        "import sys\n"
+        "import ai_based_frame_interpolation_torch.ops.polyphase\n"),
+    "eval_path": (
         "import ai_based_frame_interpolation_torch.eval.harness\n"
         "import ai_based_frame_interpolation_torch.eval.report\n"
         "import ai_based_frame_interpolation_torch.data.triplets\n"
         "import ai_based_frame_interpolation_torch.data.synthetic\n"
         "import ai_based_frame_interpolation_torch.ops.png\n"
-        "import ai_based_frame_interpolation_torch.ops.ssim_fused\n"
-        f"bad = [m for m in sys.modules if m.split('.')[0] in {absent!r}]\n"
-        "assert not bad, bad\n")
-    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
-                          capture_output=True, text=True, timeout=120)
-    assert proc.returncode == 0, proc.stderr
-
-
-def test_the_video_stream_loads_no_opencv():
-    # only the _file entry points open video files (OpenCV); a stream of
-    # frames in host memory, the part that runs on the card, needs none
-    code = (
-        "import sys\n"
+        "import ai_based_frame_interpolation_torch.ops.ssim_fused\n"),
+    "video_stream": (
         "import numpy as np\n"
         "from ai_based_frame_interpolation_torch.config import ModelConfig\n"
         "from ai_based_frame_interpolation_torch.infer.engine import (\n"
@@ -70,13 +58,51 @@ def test_the_video_stream_loads_no_opencv():
         "depth=2), device='cpu')\n"
         "frames = [np.full((32, 32, 1), 9 * i, np.uint8) for i in range(4)]\n"
         "out = list(eng.interpolate_video_frames(iter(frames), 2, 2))\n"
-        "assert len(out) == 7\n"
-        f"bad = [m for m in sys.modules if m.split('.')[0] in "
-        f"{FORBIDDEN + ('cv2',)!r}]\n"
-        "assert not bad, bad\n")
+        "assert len(out) == 7\n"),
+    # __main__ runs main: --help, which exits 0
+    **{m: ("sys.argv = ['fi-torch', '--help']\n"
+           "try:\n"
+           f"    import ai_based_frame_interpolation_torch.{m}\n"
+           "except SystemExit as e:\n"
+           "    assert e.code == 0, e.code\n")
+       for m in ("serve.server", "serve.asgi", "cli", "__main__")},
+}
+
+
+@pytest.fixture(scope="module")
+def loaded():
+    """Per step of ``STEPS``, run in order in one fresh interpreter: the
+    top-level names of the modules loaded once it has run."""
+    roots = "sorted({m.split('.')[0] for m in sys.modules})"
+    code = "import json, sys\nseen = {}\n" + "".join(
+        f"{body}seen[{name!r}] = {roots}\n"
+        for name, body in STEPS.items()) + "print(json.dumps(seen))\n"
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
-                          capture_output=True, text=True, timeout=120)
+                          capture_output=True, text=True, timeout=240)
     assert proc.returncode == 0, proc.stderr
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def test_importing_the_port_loads_no_jax(loaded):
+    assert not set(loaded["port"]) & set(FORBIDDEN)
+
+
+@pytest.mark.parametrize("module", ["parallel.mesh", "parallel.sharding",
+                                    "parallel"])
+def test_the_parallel_modules_load_no_jax(loaded, module):
+    assert not set(loaded[module]) & set(FORBIDDEN)
+
+
+def test_the_eval_path_loads_no_jax_opencv_pandas_or_plots(loaded):
+    # the card's machine has none of these: an import would fail only there
+    absent = FORBIDDEN + ("cv2", "pandas", "matplotlib", "PIL")
+    assert not set(loaded["eval_path"]) & set(absent)
+
+
+def test_the_video_stream_loads_no_opencv(loaded):
+    # only the _file entry points open video files (OpenCV); a stream of
+    # frames in host memory, the part that runs on the card, needs none
+    assert not set(loaded["video_stream"]) & set(FORBIDDEN + ("cv2",))
 
 
 def test_opencv_is_imported_only_by_the_farneback_baseline():
@@ -101,22 +127,12 @@ def test_opencv_is_imported_only_by_the_farneback_baseline():
 
 @pytest.mark.parametrize("module", ["serve.server", "serve.asgi", "cli",
                                     "__main__"])
-def test_serving_and_the_cli_load_no_jax_opencv_plots_or_fastapi(module):
+def test_serving_and_the_cli_load_no_jax_opencv_plots_or_fastapi(loaded,
+                                                                 module):
     # the card's machine need not have them: each is imported where a
-    # path that needs it runs (__main__ runs main: --help, which exits 0)
+    # path that needs it runs
     absent = FORBIDDEN + ("cv2", "matplotlib", "fastapi")
-    code = (
-        "import sys\n"
-        "sys.argv = ['fi-torch', '--help']\n"
-        "try:\n"
-        f"    import ai_based_frame_interpolation_torch.{module}\n"
-        "except SystemExit as e:\n"
-        "    assert e.code == 0, e.code\n"
-        f"bad = [m for m in sys.modules if m.split('.')[0] in {absent!r}]\n"
-        "assert not bad, bad\n")
-    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
-                          capture_output=True, text=True, timeout=120)
-    assert proc.returncode == 0, proc.stderr
+    assert not set(loaded[module]) & set(absent)
 
 
 def _imported_roots(path):
