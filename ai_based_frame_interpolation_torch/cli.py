@@ -822,7 +822,8 @@ def cmd_convert(args) -> int:
     """A reference ``.pth`` -> the port's export directory
     (``save_variables``), or an export directory -> a ``.pth``. The config
     of a ``.pth`` comes from its weights (``pth_config``). Orbax
-    directories need JAX: the JAX package's CLI converts them."""
+    directories need JAX: ``scripts/torch_convert_orbax.py`` converts them
+    to and from export directories."""
     from .train.checkpoint import (export_pth, import_pth, load_variables,
                                    pth_config, save_variables)
 
@@ -834,7 +835,8 @@ def cmd_convert(args) -> int:
     if not os.path.exists(os.path.join(args.input, "variables.pt")):
         raise FileNotFoundError(
             f"{args.input}: no variables.pt (an export directory written by "
-            "save_variables); Orbax directories need the JAX package")
+            "save_variables); convert an Orbax directory into one with "
+            "scripts/torch_convert_orbax.py, which needs the JAX package")
     if not args.output.endswith((".pth", ".pt")):
         raise SystemExit("error: output must be a .pth file when "
                          "converting from an export directory")

@@ -17,8 +17,12 @@ before they drain batch k (``_Transfers``).
 
 With ``mesh`` (an engine mesh, ``parallel/mesh.py``) the engine keeps a
 replica of its folded weights on each card of the mesh and splits each
-dispatch's batch into equal chunks, one a card (``_over_mesh``); each
-chunk takes the routes the engine takes at that batch, the kernels
+dispatch as JAX's ``choose_spec`` does: the batch into equal chunks, one a
+card (``_over_mesh``), or, where the batch does not divide and the height
+does, each model pass by rows (``_over_rows``): every card runs the pass
+over its rows of the padded frames and a halo of ``halo_rows(cfg)`` more
+on each side, and the rows it keeps are the whole frame's. Each chunk or
+window takes the routes the engine takes at its shape, the kernels
 included.
 """
 
@@ -40,7 +44,7 @@ from ..models.unet import fold_batchnorm, tile_params_packed
 from ..ops import native, warp_fused
 from ..ops.image import denormalize_to_uint8, normalize_uint8
 from ..ops.resize import crop_to, pad_to_multiple
-from ..parallel.sharding import choose_spec, put_frames, spatial_error
+from ..parallel.sharding import choose_spec, halo_rows, put_frames, row_parts
 
 
 _CORE_IMPLS = ("xla", "auto", "pallas")
@@ -195,11 +199,15 @@ class InterpolationEngine:
     cards, as the JAX engine's ``mesh`` does, with one replica of the
     weights on each (module docstring). A batch the cards do not divide
     takes JAX's choice (``parallel.sharding.choose_spec``): where that is
-    the frames' height, ``NotImplementedError`` (ROADMAP Queue A, spatial
-    sharding); where it replicates, the first card runs it. The JAX
-    engine turns its Pallas routes off under a mesh because a Pallas call
-    does not run inside its sharded program; the port's kernels run per
-    card, so every route stays on.
+    the frames' height, each model pass runs over row windows, one a card
+    (:meth:`_over_rows`; each card computes its rows and the halo, so two
+    cards at 1080p compute 1024 and 960 of the 1088 padded rows of the
+    production U-Net, and the first card alone the whole frame where a
+    window would hold it, as for the flow config at 1080p); where it
+    replicates, the first card runs it. The
+    JAX engine turns its Pallas routes off under a mesh because a Pallas
+    call does not run inside its sharded program; the port's kernels run
+    per card, so every route stays on.
     """
 
     def __init__(self, model: torch.nn.Module,
@@ -393,51 +401,93 @@ class InterpolationEngine:
                 "refine_factor=1)")
         return True
 
-    def _forward(self, model, x1, x2):
+    def _forward(self, model, x1, x2, rows=None):
+        """One U-Net-family forward on padded NCHW frames (``rows``: a
+        height split's window, ``FrameInterpolationUNet.forward``)."""
         if self._core_t_ok(x1):
-            y = core_t.forward_pre_refine(model, x1, x2)
+            y = core_t.forward_pre_refine(model, x1, x2, rows)
             return model.refine(y, x1, x2).to(self.compute_dtype)
         if self._use_pack(int(x1.shape[0])):
             model = self._packed_core(model)
-        return model(x1, x2).to(self.compute_dtype)
+        return model(x1, x2, rows=rows).to(self.compute_dtype)
+
+    def _pass(self, split: bool, fn, model, xs, *extra):
+        """One model pass ``fn(model, *xs, *extra)`` over the padded NCHW
+        frames ``xs``, or with ``split`` over the mesh's row windows
+        (:meth:`_over_rows`)."""
+        if not split:
+            return fn(model, *xs, *extra)
+        return self._over_rows(fn, xs, extra)
+
+    def _over_rows(self, fn, xs, extra=()):
+        """The height split of one model pass: for each part of
+        ``parallel.sharding.row_parts`` (the padded height cut at multiples
+        of ``cfg.pad_multiple``, the halo ``halo_rows(cfg)``), ``fn(replica,
+        *windows, *extra, rows=(first row, padded height))`` on its card,
+        issued in turn from this thread; the rows each part keeps cropped
+        out of its output (rows on axis -2) and put together in order on the
+        first card."""
+        hp = int(xs[0].shape[-2])
+        parts = row_parts(hp, self.mesh.size, self.cfg.pad_multiple,
+                          halo_rows(self.cfg))
+        outs = []
+        for i, (a, b, lo, hi) in enumerate(parts):
+            dev = self.mesh.devices[i]
+            wins = [x[..., lo:hi, :].contiguous().to(dev) for x in xs]
+            y = fn(self.replicas[i], *wins, *(e.to(dev) for e in extra),
+                   rows=(lo, hp))
+            outs.append(y[..., a - lo:b - lo, :].to(self.device))
+        return torch.cat(outs, -2)
 
     def _pair_fn(self, n_out: int, depth: int):
         key = ("pair", n_out, depth)
         if key not in self._fn_cache:
             self._fn_cache[key] = self._chunk_batches(
-                self._build_pair_fn(n_out, depth))
+                self._build_pair_fn(n_out, depth),
+                None if self.mesh is None
+                else self._build_pair_fn(n_out, depth, True))
         return self._fn_cache[key]
 
-    def _chunk_batches(self, fn):
-        """The batch splitter: with a mesh, one chunk a card
-        (:meth:`_over_mesh`); then ``max_dispatch_batch``, a larger chunk
-        split into sequential dispatches; the results concatenated in
-        order."""
+    def _chunk_batches(self, fn, split_fn=None):
+        """The batch splitter over a pair function ``fn``: with a mesh,
+        JAX's choice (:meth:`_over_mesh`: one chunk a card, or the whole
+        batch through ``split_fn``, whose model passes run over row
+        windows); then ``max_dispatch_batch``, a larger chunk split into
+        sequential dispatches; the results concatenated in order."""
 
-        def limited(model, f1_u8, f2_u8):
-            limit = self.max_dispatch_batch
-            b = int(f1_u8.shape[0])
-            if not limit or b <= limit:
-                return fn(model, f1_u8, f2_u8)
-            return torch.cat([fn(model, f1_u8[i:i + limit],
-                                 f2_u8[i:i + limit])
-                              for i in range(0, b, limit)], 0)
+        def limited(pair):
+            def run(model, f1_u8, f2_u8):
+                limit = self.max_dispatch_batch
+                b = int(f1_u8.shape[0])
+                if not limit or b <= limit:
+                    return pair(model, f1_u8, f2_u8)
+                return torch.cat([pair(model, f1_u8[i:i + limit],
+                                       f2_u8[i:i + limit])
+                                  for i in range(0, b, limit)], 0)
+            return run
 
-        def wrapper(model, f1_u8, f2_u8):
-            if self.mesh is None:
-                return limited(model, f1_u8, f2_u8)
-            return self._over_mesh(limited, f1_u8, f2_u8)
+        plain = limited(fn)
+        if self.mesh is None:
+            return plain
+        split = limited(split_fn)
+        return lambda model, f1_u8, f2_u8: self._over_mesh(
+            plain, split, f1_u8, f2_u8)
 
-        return wrapper
-
-    def _over_mesh(self, fn, f1_u8, f2_u8, ts=None):
-        """``fn(replica, f1 chunk, f2 chunk[, times])`` for each card's
-        chunk of the batch (``parallel.sharding.put_frames``), issued in
+    def _over_mesh(self, fn, split_fn, f1_u8, f2_u8, ts=None):
+        """JAX's choice for the batch (``parallel.sharding.choose_spec``).
+        A batch split: ``fn(replica, f1 chunk, f2 chunk[, times])`` for
+        each card's chunk (``parallel.sharding.put_frames``), issued in
         turn from this thread with no wait between them (how far the
         cards' work overlaps is PERF.md's to say); the outputs
-        concatenated in order on the first card. Times per pair
-        (``ts`` [n_t, B]) are split with the pairs."""
-        parts = [put_frames(f, self.mesh) for f in (f1_u8, f2_u8)]
+        concatenated in order on the first card. Times per pair (``ts``
+        [n_t, B]) are split with the pairs. A height split: ``split_fn``
+        on the first card, whose model passes run over row windows
+        (:meth:`_over_rows`). Replicated: ``fn`` on the first card."""
+        spec = choose_spec(int(f1_u8.shape[0]), int(f1_u8.shape[1]),
+                           self.mesh)
+        parts = [put_frames(f, self.mesh, spec) for f in (f1_u8, f2_u8)]
+        if len(spec) > 1:
+            fn = split_fn
         n = len(parts[0])
         outs = []
         for i, (a, b) in enumerate(zip(*parts)):
@@ -472,28 +522,35 @@ class InterpolationEngine:
                              f"shape {tuple(x1.shape)} (NCHW)")
         return model.sample(x1, x2, flow, mask, t)
 
-    def _build_pair_fn(self, n_out: int, depth: int):
+    def _build_pair_fn(self, n_out: int, depth: int, split: bool = False):
         """uint8 [B,H,W,C] pair -> uint8 [B, n_out, H, W, C].
 
         U-Net family: ``n_out`` of the 2**depth - 1 dyadic intermediates,
         at the times nearest to i/(n_out+1) (exact when n_out+1 is a power
-        of two). Flow family: one motion pass, then ``n_out`` samples at
-        the exact times i/(n_out+1); ``depth`` is ignored."""
+        of two); each forward is one model pass. Flow family: one motion
+        pass, then ``n_out`` samples at the exact times i/(n_out+1), all
+        one model pass; ``depth`` is ignored. ``split``: each model pass
+        over the mesh's row windows (:meth:`_pass`); the pad, the crop and
+        the uint8 conversion run once, on the whole frames."""
         cdt = self.compute_dtype
         if self.cfg.arch == "flow":
+
+            def samples(model, x1, x2, rows=None):
+                flow, mask = model.motion(x1, x2, rows=rows)
+                outs = []
+                for i in range(n_out):
+                    t = torch.full((x1.shape[0],), (i + 1) / (n_out + 1),
+                                   dtype=torch.float32, device=x1.device)
+                    y = self._flow_sample(model, x1, x2, flow, mask, t)
+                    outs.append(y.to(cdt))
+                return torch.stack(outs, 1)
 
             def flow_fn(model, f1_u8, f2_u8):
                 with torch.inference_mode():
                     x1, hw = self._prep(f1_u8)
                     x2, _ = self._prep(f2_u8)
-                    flow, mask = model.motion(x1, x2)
-                    outs = []
-                    for i in range(n_out):
-                        t = torch.full((x1.shape[0],), (i + 1) / (n_out + 1),
-                                       dtype=torch.float32, device=x1.device)
-                        y = self._flow_sample(model, x1, x2, flow, mask, t)
-                        outs.append(crop_to(y.to(cdt), hw))
-                    out = denormalize_to_uint8(torch.stack(outs, 1))
+                    y = self._pass(split, samples, model, (x1, x2))
+                    out = denormalize_to_uint8(crop_to(y, hw))
                     return out.permute(0, 1, 3, 4, 2)
 
             return flow_fn
@@ -504,11 +561,14 @@ class InterpolationEngine:
             idx = [min(total - 1, round((i + 1) * (total + 1) / (n_out + 1)) - 1)
                    for i in range(n_out)]
 
+        def forward(model, x1, x2):
+            return self._pass(split, self._forward, model, (x1, x2))
+
         def fn(model, f1_u8, f2_u8):
             with torch.inference_mode():
                 x1, hw = self._prep(f1_u8)
                 x2, _ = self._prep(f2_u8)
-                mids = _bisect(self._forward, model, x1, x2, depth)
+                mids = _bisect(forward, model, x1, x2, depth)
                 out = torch.stack([crop_to(mids[i], hw) for i in idx], 1)
                 return denormalize_to_uint8(out).permute(0, 1, 3, 4, 2)
 
@@ -518,33 +578,41 @@ class InterpolationEngine:
         key = ("time", n_t)
         if key not in self._fn_cache:
             fn = self._build_time_fn(n_t)
-            self._fn_cache[key] = fn if self.mesh is None else (
-                lambda model, f1, f2, ts: self._over_mesh(fn, f1, f2, ts))
+            if self.mesh is not None:
+                plain, split = fn, self._build_time_fn(n_t, True)
+                fn = lambda model, f1, f2, ts: self._over_mesh(  # noqa: E731
+                    plain, split, f1, f2, ts)
+            self._fn_cache[key] = fn
         return self._fn_cache[key]
 
-    def _build_time_fn(self, n_t: int):
+    def _build_time_fn(self, n_t: int, split: bool = False):
         """uint8 pair batch and times ``ts`` ([n_t], or [n_t, B] for a time
         per pair) -> uint8 [B, n_t, H, W, C]: one motion pass for the flow
-        family, one forward per time for a ``time_conditioned`` U-Net."""
+        family, one forward per time for a ``time_conditioned`` U-Net, all
+        one model pass (``split`` as in :meth:`_build_pair_fn`)."""
         cdt = self.compute_dtype
         is_flow = self.cfg.arch == "flow"
+
+        def times(model, x1, x2, ts, rows=None):
+            b = x1.shape[0]
+            if is_flow:
+                flow, mask = model.motion(x1, x2, rows=rows)
+            outs = []
+            for i in range(n_t):
+                t = ts[i].to(torch.float32).expand(b).contiguous()
+                if is_flow:
+                    y = self._flow_sample(model, x1, x2, flow, mask, t)
+                else:
+                    y = model(x1, x2, t=t, rows=rows)
+                outs.append(y.to(cdt))
+            return torch.stack(outs, 1)
 
         def fn(model, f1_u8, f2_u8, ts):
             with torch.inference_mode():
                 x1, hw = self._prep(f1_u8)
                 x2, _ = self._prep(f2_u8)
-                b = x1.shape[0]
-                if is_flow:
-                    flow, mask = model.motion(x1, x2)
-                outs = []
-                for i in range(n_t):
-                    t = ts[i].to(torch.float32).expand(b).contiguous()
-                    if is_flow:
-                        y = self._flow_sample(model, x1, x2, flow, mask, t)
-                    else:
-                        y = model(x1, x2, t=t)
-                    outs.append(crop_to(y.to(cdt), hw))
-                out = denormalize_to_uint8(torch.stack(outs, 1))
+                y = self._pass(split, times, model, (x1, x2), ts)
+                out = denormalize_to_uint8(crop_to(y, hw))
                 return out.permute(0, 1, 3, 4, 2)
 
         return fn
@@ -553,19 +621,24 @@ class InterpolationEngine:
         key = ("tower_stream",)
         if key not in self._fn_cache:
             fn = self._build_tower_stream_fn()
-            self._fn_cache[key] = fn if self.mesh is None else (
-                lambda model, frames: self._tower_over_mesh(fn, frames))
+            if self.mesh is not None:
+                plain, split = fn, self._build_tower_stream_fn(True)
+                fn = lambda model, frames: self._tower_over_mesh(  # noqa: E731
+                    plain, split, frames)
+            self._fn_cache[key] = fn
         return self._fn_cache[key]
 
-    def _tower_over_mesh(self, fn, frames: torch.Tensor) -> torch.Tensor:
+    def _tower_over_mesh(self, fn, split_fn, frames: torch.Tensor
+                         ) -> torch.Tensor:
         """The tower stream step over the mesh: the K frames split as JAX
         splits them (``choose_spec`` on K), each card taking its K/n frames
         and the next one, so that the K-1 pairs are each encoded on one
-        card."""
+        card; or, where JAX splits the height, ``split_fn`` on the first
+        card, whose encode and decode run over row windows."""
         k, h = int(frames.shape[0]), int(frames.shape[1])
         spec = choose_spec(k, h, self.mesh)
         if len(spec) > 1:
-            raise spatial_error(self.mesh)
+            return split_fn(self.model, frames.to(self.device))
         if not spec:
             return fn(self.model, frames)
         per = k // self.mesh.size
@@ -574,19 +647,25 @@ class InterpolationEngine:
                     zip(self.replicas, self.mesh.devices))]
         return torch.cat([o.to(self.device) for o in outs], 0)
 
-    def _build_tower_stream_fn(self):
+    def _build_tower_stream_fn(self, split: bool = False):
         """Tower stream step: uint8 [K,H,W,C] consecutive frames -> uint8
         [K-1,H,W,C] midpoints, each frame encoded once (the pyramids of
-        pair (i, i+1) are slices of one batched encode)."""
+        pair (i, i+1) are slices of one batched encode); the encode and
+        decode are one model pass (``split`` as in
+        :meth:`_build_pair_fn`)."""
         cdt = self.compute_dtype
+
+        def step(model, x, rows=None):
+            feats = model.encode(x)
+            return model.decode([f[:-1] for f in feats],
+                                [f[1:] for f in feats], x[:-1], x[1:],
+                                rows=rows).to(cdt)
 
         def fn(model, frames_u8):
             with torch.inference_mode():
                 x, hw = self._prep(frames_u8)
-                feats = model.encode(x)
-                y = model.decode([f[:-1] for f in feats],
-                                 [f[1:] for f in feats], x[:-1], x[1:])
-                return denormalize_to_uint8(crop_to(y.to(cdt), hw)) \
+                y = self._pass(split, step, model, (x,))
+                return denormalize_to_uint8(crop_to(y, hw)) \
                     .permute(0, 2, 3, 1)
 
         return fn

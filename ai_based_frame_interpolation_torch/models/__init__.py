@@ -3,6 +3,13 @@ from .tower import TowerInterpolator  # noqa: F401
 from .unet import (DoubleConv, Down, FrameInterpolationUNet, UNet, Up,  # noqa: F401
                    count_parameters, fold_batchnorm)
 
+# model-family registry: ModelConfig.arch -> module class
+MODEL_REGISTRY = {
+    "unet": FrameInterpolationUNet,
+    "tower": TowerInterpolator,
+    "flow": FlowInterpolator,
+}
+
 
 def build_model(cfg, compute_dtype=None, folded=False, pack=1):
     """Construct the configured model family (weights as PyTorch's default
@@ -16,6 +23,4 @@ def build_model(cfg, compute_dtype=None, folded=False, pack=1):
             raise ValueError(f"pack > 1 is for the U-Net family, not "
                              f"arch={cfg.arch!r}")
         return FrameInterpolationUNet(cfg, cdt, folded=folded, pack=pack)
-    families = {"unet": FrameInterpolationUNet, "tower": TowerInterpolator,
-                "flow": FlowInterpolator}
-    return families[cfg.arch](cfg, cdt, folded=folded)
+    return MODEL_REGISTRY[cfg.arch](cfg, cdt, folded=folded)

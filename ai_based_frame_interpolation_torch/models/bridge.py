@@ -1,4 +1,4 @@
-"""Carry Flax weights into the port's ``state_dict``.
+"""Carry Flax weights into the port's ``state_dict``, and back.
 
 Input: a Flax variables tree of numpy arrays, ``{"params", "batch_stats"}``
 (unfolded BatchNorm) or ``{"params"}`` (folded). Conv kernels go from HWIO
@@ -11,6 +11,7 @@ U-Net family (``unet/...``, the heads), the tower family
 ``decoder/outc`` and the heads) and the flow family (``motion_unet/...``,
 its head and the cascade's ``cascade{k}_1``, ``cascade{k}_2`` and
 ``cascade{k}_out``). Any other key raises ``KeyError``.
+:func:`state_dict_to_flax` is the inverse, in numpy.
 """
 
 from __future__ import annotations
@@ -87,3 +88,48 @@ def flax_to_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
 
     walk(variables["params"], stats, ())
     return out
+
+
+def state_dict_to_flax(state: Mapping[str, torch.Tensor]) -> Dict[str, dict]:
+    """The Flax variables tree (nested dicts of f32 numpy arrays,
+    ``{"params", "batch_stats"}``, or ``{"params"}`` for folded weights)
+    of a port ``state_dict`` of any family: the inverse of
+    :func:`flax_to_state_dict`. ``num_batches_tracked`` has no Flax
+    counterpart and is dropped; any other key without a Flax module raises
+    ``KeyError``."""
+    params: dict = {}
+    stats: dict = {}
+
+    def put(tree: dict, path: Tuple[str, ...], leaf: str,
+            value: np.ndarray) -> None:
+        node = tree
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = np.ascontiguousarray(value)
+
+    for key, t in state.items():
+        val = t.detach().cpu().float().numpy()
+        name, _, leaf = key.rpartition(".")
+        path = tuple(name.split("."))
+        _check_path(path)
+        if leaf == "num_batches_tracked":
+            continue
+        if f"{name}.running_var" in state:          # BatchNorm
+            flax = {"weight": "scale", "bias": "bias",
+                    "running_mean": "mean", "running_var": "var"}
+            if leaf not in flax:
+                raise KeyError(f"unmapped BatchNorm leaf {key}")
+            put(params if leaf in ("weight", "bias") else stats, path,
+                flax[leaf], val)
+        elif leaf == "weight":
+            if path[-1] == "up":                    # 2x2 stride-2 transposed
+                val = val.transpose(2, 3, 0, 1)[::-1, ::-1]
+            else:
+                val = val.transpose(2, 3, 1, 0)
+            put(params, path, "kernel", val)
+        elif leaf == "bias":
+            put(params, path, "bias", val)
+        else:
+            raise KeyError(f"unmapped leaf {key}")
+    return {"params": params, "batch_stats": stats} if stats else \
+        {"params": params}

@@ -34,7 +34,7 @@ from ..config import ModelConfig
 from ..ops.dconv_fused import (double_conv_fused, pack_dconv_weights,
                                up_double_conv_fused)
 from ..ops.resize import _align_corners_taps
-from .unet import depth_to_space
+from .unet import depth_to_space, level_rows
 
 # Max acceptable lane-padding ratio ceil128(w)/w at each transposed level.
 _MAX_PAD_RATIO = 1.2
@@ -130,35 +130,38 @@ def _pool2(x: torch.Tensor) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=32)
-def _align_corners_taps_t(n: int, dtype: torch.dtype, device: torch.device):
+def _align_corners_taps_t(n: int, rows, dtype: torch.dtype,
+                          device: torch.device):
     """(lo, hi, bf16(1 - w), bf16(w)) of the x2 align-corners lerp over
-    ``n`` rows, the weights rounded to ``dtype`` and kept f32 (the lo == hi
-    edge rows sum to 1), placed on ``device`` once per shape."""
-    lo, hi, w = _align_corners_taps(n)
+    ``n`` rows (a window's, with ``rows``: ``ops/resize.py``), the weights
+    rounded to ``dtype`` and kept f32 (the lo == hi edge rows sum to 1),
+    placed on ``device`` once per shape."""
+    lo, hi, w = _align_corners_taps(n, rows)
     return (torch.from_numpy(lo).to(device), torch.from_numpy(hi).to(device),
             torch.from_numpy(1.0 - w).to(dtype).float().to(device),
             torch.from_numpy(w).to(dtype).float().to(device))
 
 
-def _upsample2x_t(x: torch.Tensor) -> torch.Tensor:
+def _upsample2x_t(x: torch.Tensor, rows=None) -> torch.Tensor:
     """x2 align-corners bilinear of [B,H,W,C], as the JAX core composes it
     (``core_t.py:_upsample2x_t``): along W a two-tap product with the
     weights rounded to the input's dtype first (its W matrix), f32 sums,
     rounded; then along H the two-tap lerp with the weights rounded to the
-    input's dtype, in f32, rounded."""
+    input's dtype, in f32, rounded. ``rows=(first, total)``: ``x`` is a
+    height split's window (``ops/resize.py:upsample2x_align_corners``)."""
     dt = x.dtype
     f = x.float()
-    lo, hi, wlo, whi = _align_corners_taps_t(x.shape[2], dt, x.device)
+    lo, hi, wlo, whi = _align_corners_taps_t(x.shape[2], None, dt, x.device)
     f = (f.index_select(2, lo) * wlo.view(1, 1, -1, 1)
          + f.index_select(2, hi) * whi.view(1, 1, -1, 1)).to(dt).float()
-    lo, hi, wlo, whi = _align_corners_taps_t(x.shape[1], dt, x.device)
+    lo, hi, wlo, whi = _align_corners_taps_t(x.shape[1], rows, dt, x.device)
     f = (f.index_select(1, lo) * wlo.view(1, -1, 1, 1)
          + f.index_select(1, hi) * whi.view(1, -1, 1, 1))
     return f.to(dt)
 
 
-def forward_pre_refine(model, x1: torch.Tensor, x2: torch.Tensor
-                       ) -> torch.Tensor:
+def forward_pre_refine(model, x1: torch.Tensor, x2: torch.Tensor,
+                       rows=None) -> torch.Tensor:
     """Folded-inference forward up to and including the residual add, the
     ``skip_refine=True`` contract of ``FrameInterpolationUNet``: the
     normalized NCHW frames in, the f32 full-resolution NCHW prediction out.
@@ -167,7 +170,8 @@ def forward_pre_refine(model, x1: torch.Tensor, x2: torch.Tensor
     its ``packed_core`` (:meth:`pack_core`, built once per model) holds the
     kernels' weight layouts, and the kernels raise without it; on CPU
     tensors the kernels' plain versions run. :func:`eligible` must hold for
-    the input shape.
+    the input shape. ``rows`` as ``FrameInterpolationUNet.forward`` takes
+    them (a height split's window).
     """
     cfg, cdt = model.cfg, model.compute_dtype
     r = cfg.space_to_depth
@@ -179,9 +183,10 @@ def forward_pre_refine(model, x1: torch.Tensor, x2: torch.Tensor
         return double_conv_fused(x, *_weights(blocks[name]), cdt,
                                  packed.get(name))
 
-    def up_level(name, skip, low):
+    def up_level(name, skip, low, scale):
         if cfg.upsample == "align_corners":
-            return dconv(name, torch.cat([skip, _upsample2x_t(low)], -1))
+            return dconv(name, torch.cat(
+                [skip, _upsample2x_t(low, level_rows(rows, scale))], -1))
         return up_double_conv_fused(skip, low, *_weights(blocks[name]), cdt,
                                     packed.get(name))
 
@@ -194,11 +199,12 @@ def forward_pre_refine(model, x1: torch.Tensor, x2: torch.Tensor
     s2n = s2.permute(0, 3, 1, 2)
     s3 = u.down3(s2n, cdt)
     s4 = u.down4(s3, cdt)
-    y = u.up1(s4, s3, cdt)
-    y = u.up2(y, s2n, cdt).permute(0, 2, 3, 1).contiguous()
+    y = u.up1(s4, s3, cdt, rows=level_rows(rows, 16 * r))
+    y = u.up2(y, s2n, cdt, rows=level_rows(rows, 8 * r))
+    y = y.permute(0, 2, 3, 1).contiguous()
 
-    y = up_level("up3", s1, y)
-    y = up_level("up4", s0, y)
+    y = up_level("up3", s1, y, 4 * r)
+    y = up_level("up4", s0, y, 2 * r)
 
     ko = u.outc.weight.reshape(u.outc.out_channels, -1).float()
     yn = y.float() @ ko.t() + u.outc.bias.float()

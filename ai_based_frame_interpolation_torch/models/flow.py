@@ -46,10 +46,10 @@ import torch.nn.functional as F
 
 from ..config import ModelConfig
 from ..ops.refine import pack_head_weights, refine_head
-from ..ops.resize import resize_bilinear
-from ..ops.warp import backward_warp
+from ..ops.resize import reach_half_pixel, resize_bilinear
+from ..ops.warp import backward_warp, row_reach
 from ..ops.warp_fused import config_eligible, sample_fused
-from .unet import UNet, conv
+from .unet import Reach, UNet, conv, hull, level_rows, reach_conv, reach_down
 
 
 def _nhwc(x: torch.Tensor) -> torch.Tensor:
@@ -110,17 +110,22 @@ class FlowInterpolator(nn.Module):
             if self.cfg.refine_width > 0 else None
 
     def motion(self, frame1: torch.Tensor, frame2: torch.Tensor,
-               train: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+               train: bool = False, rows: Optional[tuple] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
         """One backbone pass, then the cascade: (flow [B,2,H,W] f32 in
         pixels, channel 0 the x displacement, [B,4,H,W] under
         ``flow_bidir`` with ``F10`` in channels 2-3; mask [B,1,H,W] f32 in
-        (0, 1)), at full resolution."""
+        (0, 1)), at full resolution. ``rows=(first, total)``: the frames
+        are rows ``[first, first + H)`` of padded frames of ``total`` rows,
+        both multiples of ``cfg.pad_multiple`` (a height split's
+        window)."""
         s = self.cfg.flow_scale
         nf = 4 if self.cfg.flow_bidir else 2
         x = torch.cat([frame1, frame2], 1)
         if s > 1:
             x = F.avg_pool2d(x.float(), s).to(x.dtype)
-        y = self.motion_unet(x, self.compute_dtype, train)  # f32 output conv
+        y = self.motion_unet(x, self.compute_dtype, train,
+                             level_rows(rows, s))  # f32 output conv
         flow, logit = y[:, :nf], y[:, nf:nf + 1]
         if s > 1:
             hw = (frame1.shape[-2], frame1.shape[-1])
@@ -217,3 +222,32 @@ class FlowInterpolator(nn.Module):
                            device=frame1.device)
         flow, mask = self.motion(frame1, frame2, train)
         return self.sample(frame1, frame2, flow, mask, t, train)
+
+    def row_reach(self, p: int) -> Optional[Reach]:
+        """The padded frame's output rows that input row ``p`` of either
+        frame reaches through :meth:`motion` and one :meth:`sample`; None
+        where a warp may read any row."""
+        cfg, row = self.cfg, (p, p)
+        warp = row_reach(cfg.warp_impl, cfg.max_flow)
+        if warp is None:
+            return None
+
+        def warped(field):
+            """Both frames warped by ``field``: their rows and the
+            field's, ``warp`` rows away."""
+            return min(p, field[0]) - warp, max(p, field[1]) + warp
+
+        field = self.motion_unet.row_reach(reach_down(row, cfg.flow_scale))
+        if cfg.flow_scale > 1:
+            field = reach_half_pixel(field, cfg.flow_scale)
+        for k in range(cfg.flow_cascade):
+            z = hull(row, field, warped(field))
+            for n in ("1", "2", "out"):
+                z = reach_conv(z, getattr(self, f"cascade{k}_{n}"))
+            field = hull(field, z)
+        z = warped(field)
+        if cfg.refine_width > 0:
+            z = hull(z, row)
+            for n in ("refine1", "refine2", "refine_out"):
+                z = reach_conv(z, getattr(self, n))
+        return z

@@ -29,8 +29,10 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..config import ModelConfig
-from ..ops.resize import upsample2x_align_corners, upsample2x_half_pixel
-from .unet import DoubleConv, RefineHead, conv, depth_to_space, space_to_depth
+from ..ops.resize import (reach_align_corners, reach_half_pixel,
+                          upsample2x_align_corners, upsample2x_half_pixel)
+from .unet import (DoubleConv, Reach, RefineHead, conv, depth_to_space, hull,
+                   level_rows, reach_conv, reach_down, space_to_depth)
 
 
 def _widths(base_width: int, depth: int) -> List[int]:
@@ -58,6 +60,13 @@ class FrameEncoder(nn.Module):
         for i in range(1, self.depth + 1):
             feats.append(getattr(self, f"down{i}")(F.max_pool2d(feats[-1], 2),
                                                    cdt, train))
+        return feats
+
+    def row_reach(self, iv: Reach) -> List[Reach]:
+        feats = [self.inc.row_reach(iv)]
+        for i in range(1, self.depth + 1):
+            feats.append(getattr(self, f"down{i}").row_reach(
+                reach_down(feats[-1], 2)))
         return feats
 
 
@@ -95,8 +104,10 @@ class FusionDecoder(nn.Module):
         self.outc = nn.Conv2d(y_ch, out_channels, 1)
 
     def forward(self, feats1: List[torch.Tensor], feats2: List[torch.Tensor],
-                t: Optional[torch.Tensor], cdt, train: bool = False
-                ) -> torch.Tensor:
+                t: Optional[torch.Tensor], cdt, train: bool = False,
+                rows: Optional[tuple] = None) -> torch.Tensor:
+        """``rows=(first, total)`` of the finest level, as
+        ``models/unet.py:UNet.forward`` takes them."""
         fused = [torch.cat([a, b], 1) for a, b in zip(feats1, feats2)]
         if self.slim:
             fused = [F.relu(conv(f, getattr(self, f"proj{j}"), cdt))
@@ -110,7 +121,8 @@ class FusionDecoder(nn.Module):
                 b, 1, h, w)], 1)
         for i in range(1, self.depth + 1):
             y = upsample2x_half_pixel(y) if self.upsample == "half_pixel" \
-                else upsample2x_align_corners(y)
+                else upsample2x_align_corners(
+                    y, level_rows(rows, 2 ** (self.depth - i + 1)))
             skip = fused[self.depth - i]
             dh = skip.shape[-2] - y.shape[-2]
             dw = skip.shape[-1] - y.shape[-1]
@@ -119,6 +131,19 @@ class FusionDecoder(nn.Module):
             y = getattr(self, f"up{i}")(torch.cat([skip, y.to(skip.dtype)], 1),
                                         cdt, train)
         return conv(y, self.outc, torch.float32)
+
+    def row_reach(self, feats: List[Reach]) -> Reach:
+        """From the reach into each level of the pyramids."""
+        if self.slim:
+            feats = [reach_conv(f, getattr(self, f"proj{j}"))
+                     for j, f in enumerate(feats)]
+        y = feats[-1]
+        for i in range(1, self.depth + 1):
+            y = reach_half_pixel(y, 2) if self.upsample == "half_pixel" \
+                else reach_align_corners(y)
+            y = getattr(self, f"up{i}").row_reach(hull(feats[self.depth - i],
+                                                       y))
+        return reach_conv(y, self.outc)
 
 
 class TowerInterpolator(RefineHead, nn.Module):
@@ -159,13 +184,15 @@ class TowerInterpolator(RefineHead, nn.Module):
 
     def decode(self, feats1: List[torch.Tensor], feats2: List[torch.Tensor],
                f1: torch.Tensor, f2: torch.Tensor,
-               t: Optional[torch.Tensor] = None, train: bool = False
-               ) -> torch.Tensor:
+               t: Optional[torch.Tensor] = None, train: bool = False,
+               rows: Optional[tuple] = None) -> torch.Tensor:
         """The prediction from two pyramids and their frames (the residual
-        base and the head's planes); ``train`` as in ``models/unet.py``."""
+        base and the head's planes); ``train`` as in ``models/unet.py``;
+        ``rows`` as ``FrameInterpolationUNet.forward`` takes them."""
         cfg = self.cfg
         r = cfg.space_to_depth
-        y = self.decoder(feats1, feats2, t, self.compute_dtype, train)
+        y = self.decoder(feats1, feats2, t, self.compute_dtype, train,
+                         level_rows(rows, r))
         if cfg.residual:
             y = y + 0.5 * (space_to_depth(f1, r) +
                            space_to_depth(f2, r)).to(y.dtype)
@@ -176,8 +203,17 @@ class TowerInterpolator(RefineHead, nn.Module):
         return depth_to_space(y, r)
 
     def forward(self, frame1: torch.Tensor, frame2: torch.Tensor,
-                t: Optional[torch.Tensor] = None, train: bool = False
-                ) -> torch.Tensor:
+                t: Optional[torch.Tensor] = None, train: bool = False,
+                rows: Optional[tuple] = None) -> torch.Tensor:
         return self.decode(self.encode(frame1, train),
                            self.encode(frame2, train), frame1, frame2, t,
-                           train)
+                           train, rows)
+
+    def row_reach(self, p: int) -> Reach:
+        """As ``FrameInterpolationUNet.row_reach``, for one decode over
+        both frames' pyramids."""
+        x = reach_down((p, p), self.cfg.space_to_depth)
+        y = self.decoder.row_reach(self.encoder.row_reach(x))
+        if self.cfg.residual:
+            y = hull(y, x)
+        return self.head_reach(y, p)

@@ -38,7 +38,7 @@ full f32, as on the JAX side.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -49,7 +49,8 @@ from ..config import ModelConfig
 from ..ops.polyphase import up2_conv_half_pixel
 from ..ops.refine import (pack_head_weights, refine_head,
                           refine_head_reference)
-from ..ops.resize import upsample2x_align_corners, upsample2x_half_pixel
+from ..ops.resize import (reach_align_corners, reach_half_pixel,
+                          upsample2x_align_corners, upsample2x_half_pixel)
 
 torch.backends.cudnn.allow_tf32 = False
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -126,6 +127,37 @@ def _world() -> int:
     """The process group's size; 1 without one."""
     return dist.get_world_size() if dist.is_available() and \
         dist.is_initialized() else 1
+
+
+# A height split's halo (parallel/sharding.py:halo_rows) from the layers
+# themselves: each module's ``row_reach`` maps the rows ``(lo, hi)`` of its
+# input that one input row of the frame reaches to the rows of its output
+# they reach, at each map's own scale, every tap counted whatever its
+# weight.
+
+Reach = Tuple[int, int]
+
+
+def reach_conv(iv: Reach, m: nn.Module) -> Reach:
+    """Through the conv ``m`` (same padding, stride 1)."""
+    k = (m.kernel_size[0] - 1) // 2
+    return iv[0] - k, iv[1] + k
+
+
+def reach_down(iv: Reach, s: int) -> Reach:
+    """Through a max or average pool by ``s``, or space-to-depth by ``s``."""
+    return iv[0] // s, iv[1] // s
+
+
+def reach_up(iv: Reach, s: int) -> Reach:
+    """Through depth-to-space by ``s``, or an s x s transposed conv of
+    stride ``s``."""
+    return iv[0] * s, iv[1] * s + s - 1
+
+
+def hull(*ivs: Reach) -> Reach:
+    """Where maps of one scale are concatenated or added."""
+    return min(iv[0] for iv in ivs), max(iv[1] for iv in ivs)
 
 
 class _SumOverRanks(torch.autograd.Function):
@@ -231,6 +263,9 @@ class DoubleConv(nn.Module):
             x = F.relu(x).to(cdt)
         return x
 
+    def row_reach(self, iv: Reach) -> Reach:
+        return reach_conv(reach_conv(iv, self.conv1), self.conv2)
+
 
 class Down(nn.Module):
     """2x2 max-pool then DoubleConv."""
@@ -243,6 +278,9 @@ class Down(nn.Module):
     def forward(self, x: torch.Tensor, cdt, train: bool = False
                 ) -> torch.Tensor:
         return self.conv(F.max_pool2d(x, 2), cdt, train)
+
+    def row_reach(self, iv: Reach) -> Reach:
+        return self.conv.row_reach(reach_down(iv, 2))
 
 
 class Up(nn.Module):
@@ -274,7 +312,11 @@ class Up(nn.Module):
                                    folded=folded)
 
     def forward(self, x1: torch.Tensor, x2: torch.Tensor, cdt,
-                train: bool = False) -> torch.Tensor:
+                train: bool = False, rows: Optional[tuple] = None
+                ) -> torch.Tensor:
+        """``rows=(first, total)``: ``x1`` is a height split's window, rows
+        ``[first, first + H)`` of a low map of ``total`` rows, which the
+        align-corners upsample needs (``ops/resize.py``)."""
         if not self.bilinear:
             x1 = F.conv_transpose2d(x1.to(cdt), self.up.weight.to(cdt),
                                     stride=2)
@@ -286,13 +328,24 @@ class Up(nn.Module):
                 return self.conv(x2, cdt, train, poly_low=x1)
             x1 = upsample2x_half_pixel(x1)
         else:
-            x1 = upsample2x_align_corners(x1)
+            x1 = upsample2x_align_corners(x1, rows)
         dh = x2.shape[-2] - x1.shape[-2]
         dw = x2.shape[-1] - x1.shape[-1]
         if dh or dw:
             x1 = F.pad(x1, (dw // 2, dw - dw // 2, dh // 2, dh - dh // 2))
         return self.conv(grouped_concat([x2, x1.to(x2.dtype)], self.pack),
                          cdt, train)
+
+    def row_reach(self, low: Reach, skip: Reach) -> Reach:
+        """From the reach into the low map and into the skip (the fused
+        polyphase conv reads what the upsample and the conv read)."""
+        if not self.bilinear:
+            low = reach_up(low, self.up.stride[0])
+        elif self.upsample == "half_pixel":
+            low = reach_half_pixel(low, 2)
+        else:
+            low = reach_align_corners(low)
+        return self.conv.row_reach(hull(skip, low))
 
 
 class UNet(nn.Module):
@@ -329,15 +382,35 @@ class UNet(nn.Module):
         self.outc = nn.Conv2d(y_ch * pack, out_channels * pack, 1,
                               groups=pack)
 
-    def forward(self, x: torch.Tensor, cdt, train: bool = False
-                ) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, cdt, train: bool = False,
+                rows: Optional[tuple] = None) -> torch.Tensor:
+        """``rows=(first, total)``: ``x`` is rows ``[first, first + H)`` of
+        a map of ``total`` rows, both multiples of ``2**depth`` (a height
+        split's window; :func:`level_rows`)."""
         skips = [self.inc(x.to(cdt), cdt, train)]
         for i in range(1, self.depth + 1):
             skips.append(getattr(self, f"down{i}")(skips[-1], cdt, train))
         y = skips[-1]
         for i in range(1, self.depth + 1):
-            y = getattr(self, f"up{i}")(y, skips[self.depth - i], cdt, train)
+            y = getattr(self, f"up{i}")(y, skips[self.depth - i], cdt, train,
+                                        level_rows(rows, 2 ** (self.depth
+                                                               - i + 1)))
         return conv(y, self.outc, torch.float32)
+
+    def row_reach(self, iv: Reach) -> Reach:
+        skips = [self.inc.row_reach(iv)]
+        for i in range(1, self.depth + 1):
+            skips.append(getattr(self, f"down{i}").row_reach(skips[-1]))
+        y = skips[-1]
+        for i in range(1, self.depth + 1):
+            y = getattr(self, f"up{i}").row_reach(y, skips[self.depth - i])
+        return reach_conv(y, self.outc)
+
+
+def level_rows(rows: Optional[tuple], scale: int) -> Optional[tuple]:
+    """A height split's ``rows=(first, total)`` at a map ``scale`` times
+    coarser (None stays None)."""
+    return None if rows is None else (rows[0] // scale, rows[1] // scale)
 
 
 def _nhwc(x: torch.Tensor) -> torch.Tensor:
@@ -399,6 +472,19 @@ class RefineHead:
         delta = conv(z.float(), self.refine_out, torch.float32)
         return depth_to_space((yg + delta).to(cdt), self.cfg.refine_factor)
 
+    def head_reach(self, y: Reach, p: int) -> Reach:
+        """The frame's rows that input row ``p`` reaches, from its reach
+        ``y`` into the prediction in the stem's layout: :meth:`head`'s
+        depth-to-space, its convs over the prediction and the planes, and
+        the last depth-to-space."""
+        r, g = self.cfg.space_to_depth, self.cfg.refine_factor
+        if not self.has_head:
+            return reach_up(y, r)
+        z = hull(reach_up(y, r // g), reach_down((p, p), g))
+        for n in self.head_names:
+            z = reach_conv(z, getattr(self, n))
+        return reach_up(z, g)
+
     def refine(self, pred: torch.Tensor, frame1: torch.Tensor,
                frame2: torch.Tensor) -> torch.Tensor:
         """The full-resolution head (``refine_factor=1``, dense or
@@ -455,12 +541,14 @@ class FrameInterpolationUNet(RefineHead, nn.Module):
 
     def forward(self, frame1: torch.Tensor, frame2: torch.Tensor,
                 t: Optional[torch.Tensor] = None,
-                skip_refine: bool = False, train: bool = False
-                ) -> torch.Tensor:
+                skip_refine: bool = False, train: bool = False,
+                rows: Optional[tuple] = None) -> torch.Tensor:
         """``skip_refine=True`` returns the f32 pre-refine prediction at full
         resolution, for a caller that applies the head itself; ``train``
         as the module docstring says. With ``pack`` g > 1 the batch must be
-        a multiple of g."""
+        a multiple of g. ``rows=(first, total)``: the frames are rows
+        ``[first, first + H)`` of padded frames of ``total`` rows, both
+        multiples of ``cfg.pad_multiple`` (a height split's window)."""
         cfg, cdt, g = self.cfg, self.compute_dtype, self.pack
         r = cfg.space_to_depth
         f1 = space_to_depth(frame1, r)
@@ -473,7 +561,7 @@ class FrameInterpolationUNet(RefineHead, nn.Module):
                 t = torch.full((b * g,), 0.5, dtype=x.dtype, device=x.device)
             tmap = t.to(x.dtype).view(b, g, 1, 1).expand(b, g, h, w)
             x = grouped_concat([x, tmap], g)
-        y = self.unet(x, cdt, train)
+        y = self.unet(x, cdt, train, level_rows(rows, r))
         if cfg.residual:
             y = y + 0.5 * (p1 + p2).to(y.dtype)
         y = unpack_batch(y, g)
@@ -482,6 +570,16 @@ class FrameInterpolationUNet(RefineHead, nn.Module):
         g = cfg.refine_factor
         return self.head(y, depth_to_space(f1, r // g),
                          depth_to_space(f2, r // g), train)
+
+    def row_reach(self, p: int) -> Reach:
+        """The padded frame's output rows that input row ``p`` of either
+        frame reaches in one forward (the time plane is constant; the
+        packed core and the option core compute the same layers)."""
+        x = reach_down((p, p), self.cfg.space_to_depth)
+        y = self.unet.row_reach(x)
+        if self.cfg.residual:
+            y = hull(y, x)
+        return self.head_reach(y, p)
 
 
 def count_parameters(model: nn.Module) -> int:

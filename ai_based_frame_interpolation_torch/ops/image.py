@@ -2,12 +2,14 @@
 files (JAX ``ops/image.py``).
 
 The JAX package decodes with OpenCV, which the card's machine need not
-have, so the port reads and writes PNG through its own codec (``ops/png.py``) on every
-machine, and resizes with the same half-pixel bilinear grid as
-``cv2.resize(..., INTER_LINEAR)``, in f32 and then rounded (cv2 uses 11-bit
-fixed-point taps: the two agree within 1 LSB). The other formats the JAX
-package reads (JPEG, BMP, TIFF) go through OpenCV where it is installed
-(:func:`decode_image`).
+have, so the port reads and writes 8-bit PNG through its own codec
+(``ops/png.py``) on every machine, and resizes with the same half-pixel
+bilinear grid as ``cv2.resize(..., INTER_LINEAR)``, in f32 and then
+rounded (cv2 uses 11-bit fixed-point taps: the two agree within 1 LSB).
+What the codec does not read or write (palette, 16-bit and interlaced PNG;
+JPEG, BMP, TIFF) goes through OpenCV where it is installed, as every image
+does in the JAX package, and raises an ``ImportError`` that names OpenCV
+where it is not (:func:`decode_image`, :func:`save_image`).
 """
 
 from __future__ import annotations
@@ -44,36 +46,64 @@ def denormalize_to_uint8(x: torch.Tensor) -> torch.Tensor:
     return torch.round(y).to(torch.uint8)
 
 
+def preprocess_frames(frames_u8: torch.Tensor,
+                      out_hw: Optional[Tuple[int, int]] = None,
+                      dtype=torch.bfloat16) -> torch.Tensor:
+    """uint8 NHWC frames -> ``dtype`` in [-1, 1], resized to ``out_hw``
+    (H, W) on the half-pixel bilinear grid where given (JAX
+    ``preprocess_frames``): normalized in f32, resized, then cast."""
+    x = normalize_uint8(frames_u8, dtype=torch.float32)
+    if out_hw is not None and tuple(out_hw) != tuple(x.shape[-3:-1]):
+        x = resize_bilinear(x.permute(0, 3, 1, 2), out_hw,
+                            align_corners=False).permute(0, 2, 3, 1)
+    return x.to(dtype)
+
+
 # JPEG, BMP and little- and big-endian TIFF
 _OPENCV_MAGIC = (b"\xff\xd8\xff", b"BM", b"II*\x00", b"MM\x00*")
+
+
+def _opencv(what: str):
+    """The cv2 module, or an ``ImportError`` that names OpenCV for
+    ``what``."""
+    try:
+        import cv2
+    except ImportError as e:
+        raise ImportError(
+            f"{what} go through OpenCV (the cv2 module), which is not "
+            "installed; 8-bit PNG needs none. Codecs without OpenCV are on "
+            "the ROADMAP's list of features the JAX package lacks") from e
+    return cv2
 
 
 def decode_image(data: bytes, grayscale: bool = True) -> np.ndarray:
     """Encoded image bytes -> HWC uint8, C=1 gray as
     ``cv2.IMREAD_GRAYSCALE`` reads it or C=3 RGB.
 
-    PNG goes through the port's codec on every machine. Other formats go to
-    ``cv2.imdecode`` where OpenCV is installed; where it is not, JPEG, BMP
-    and TIFF raise an ``ImportError`` that names it. Raises ``ValueError``
-    for bytes that are no image it can decode (where ``cv2.imdecode``
-    returns None).
+    8-bit PNG goes through the port's codec on every machine. Other PNGs
+    (palette, 16-bit, interlaced) and other formats go to ``cv2.imdecode``
+    where OpenCV is installed, which reads them as 8-bit, as the JAX
+    package does; where it is not, they and JPEG, BMP and TIFF raise an
+    ``ImportError`` that names it. Raises ``ValueError`` for bytes that are
+    no image it can decode (where ``cv2.imdecode`` returns None).
     """
     if data[:8] == SIGNATURE:
         try:
             img = decode_png(data)
         except (ValueError, struct.error, zlib.error) as e:
             raise ValueError(f"could not decode image: {e}") from e
-        return to_gray(img) if grayscale else to_rgb(img)
-    try:
-        import cv2
-    except ImportError as e:
-        if not bytes(data[:4]).startswith(_OPENCV_MAGIC):
+        except NotImplementedError:
+            cv2 = _opencv("PNGs other than 8-bit gray, gray+alpha, RGB "
+                          "and RGBA")
+        else:
+            return to_gray(img) if grayscale else to_rgb(img)
+    elif bytes(data[:4]).startswith(_OPENCV_MAGIC):
+        cv2 = _opencv("JPEG, BMP and TIFF images")
+    else:
+        try:
+            cv2 = _opencv("images")
+        except ImportError:
             raise ValueError("could not decode image") from None
-        raise ImportError(
-            "JPEG, BMP and TIFF images are decoded through OpenCV (the cv2 "
-            "module), which is not installed; PNG needs none. A decoder "
-            "without OpenCV waits for ROADMAP Queue A, codecs without "
-            "OpenCV") from e
     img = cv2.imdecode(np.frombuffer(data, np.uint8),
                        cv2.IMREAD_GRAYSCALE if grayscale
                        else cv2.IMREAD_COLOR)
@@ -108,11 +138,20 @@ def load_image(path: str, grayscale: bool = True,
 
 
 def save_image(path: str, img: np.ndarray) -> None:
-    """Write HWC uint8 (1 or 3 channels, RGB) as a PNG (the port writes
-    no other format)."""
-    if os.path.splitext(path)[1].lower() != ".png":
-        raise NotImplementedError(
-            f"{path}: the port writes PNG only; other formats wait for "
-            "ROADMAP Queue A, codecs without OpenCV")
-    with open(path, "wb") as f:
-        f.write(encode_png(np.asarray(img)))
+    """Write HWC uint8 (1 or 3 channels, RGB): a ``.png`` through the
+    port's codec, any other extension through ``cv2.imwrite`` where OpenCV
+    is installed (as the JAX package writes every image), an
+    ``ImportError`` that names OpenCV where it is not. Raises ``IOError``
+    where ``cv2.imwrite`` writes nothing."""
+    img = np.asarray(img)
+    if os.path.splitext(path)[1].lower() == ".png":
+        with open(path, "wb") as f:
+            f.write(encode_png(img))
+        return
+    cv2 = _opencv(f"images other than PNG ({path})")
+    if img.ndim == 3 and img.shape[-1] == 1:
+        img = img[:, :, 0]
+    elif img.ndim == 3 and img.shape[-1] == 3:
+        img = img[:, :, ::-1]                       # RGB -> BGR
+    if not cv2.imwrite(path, img):
+        raise IOError(f"could not write image: {path}")

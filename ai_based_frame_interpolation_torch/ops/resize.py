@@ -7,26 +7,36 @@ spatial axes last. The JAX functions take NHWC; tests transpose.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 
-def _align_corners_taps(n: int):
+def _align_corners_taps(n: int, rows: Optional[Tuple[int, int]] = None):
     """(lo, hi, w) of the x2 align-corners grid: out[o] = (1-w) x[lo] +
     w x[hi], with the source coordinate taken in float64 as the JAX package
     does (``F.interpolate`` takes it in f32, which moves the weights by up
-    to ~n * 2^-24 and the output by a few 1e-6)."""
-    src = np.arange(2 * n, dtype=np.float64) * (n - 1) / max(2 * n - 1, 1)
-    lo = np.clip(np.floor(src), 0, n - 1).astype(np.int64)
-    hi = np.minimum(lo + 1, n - 1)
-    return lo, hi, (src - lo).astype(np.float32)
+    to ~n * 2^-24 and the output by a few 1e-6).
+
+    ``rows=(first, total)``: the ``n`` rows are a window, from row
+    ``first``, of a map of ``total`` rows. The taps are then the whole
+    map's for the window's output rows ``[2 first, 2 (first + n))``,
+    indexed into the window and clamped to it (a clamped tap lands in the
+    window's halo, which its caller crops away)."""
+    first, total = rows if rows is not None else (0, n)
+    src = (np.arange(2 * first, 2 * (first + n), dtype=np.float64)
+           * (total - 1) / max(2 * total - 1, 1))
+    lo = np.clip(np.floor(src), 0, total - 1).astype(np.int64)
+    hi = np.minimum(lo + 1, total - 1)
+    w = (src - lo).astype(np.float32)
+    return (np.clip(lo - first, 0, n - 1), np.clip(hi - first, 0, n - 1), w)
 
 
-def _lerp_axis(x: torch.Tensor, axis: int) -> torch.Tensor:
-    lo, hi, w = _align_corners_taps(x.shape[axis])
+def _lerp_axis(x: torch.Tensor, axis: int,
+               rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+    lo, hi, w = _align_corners_taps(x.shape[axis], rows)
     shape = [1] * x.ndim
     shape[axis] = w.size
     wt = torch.from_numpy(w).to(x.device).view(shape)
@@ -36,10 +46,15 @@ def _lerp_axis(x: torch.Tensor, axis: int) -> torch.Tensor:
     return out.to(x.dtype)
 
 
-def upsample2x_align_corners(x: torch.Tensor) -> torch.Tensor:
+def upsample2x_align_corners(x: torch.Tensor,
+                             rows: Optional[Tuple[int, int]] = None
+                             ) -> torch.Tensor:
     """x2 bilinear, ``align_corners=True`` (reference ``nn.Upsample``),
-    as an exact two-tap lerp per axis."""
-    return _lerp_axis(_lerp_axis(x, x.ndim - 2), x.ndim - 1)
+    as an exact two-tap lerp per axis. ``rows=(first, total)``: ``x`` holds
+    rows ``[first, first + H)`` of a map of ``total`` rows (a height split's
+    window), and the H axis takes the whole map's taps
+    (:func:`_align_corners_taps`); W is never split."""
+    return _lerp_axis(_lerp_axis(x, x.ndim - 2, rows), x.ndim - 1)
 
 
 def upsample2x_half_pixel(x: torch.Tensor) -> torch.Tensor:
@@ -48,6 +63,26 @@ def upsample2x_half_pixel(x: torch.Tensor) -> torch.Tensor:
     same grid as ``F.interpolate(align_corners=False)``."""
     return F.interpolate(x, scale_factor=2, mode="bilinear",
                          align_corners=False)
+
+
+def reach_half_pixel(iv: Tuple[int, int], s: int) -> Tuple[int, int]:
+    """The output rows that input rows ``iv = (lo, hi)`` reach through a
+    bilinear x``s`` on the half-pixel grid, edge-clamped (the decoder's
+    ``half_pixel`` upsample, the polyphase and up-block kernels' fused one,
+    the flow field's resize): out[o] reads rows floor(src), floor(src) + 1
+    with src = (o + 1/2)/s - 1/2, so row j reaches the o with src in
+    [j - 1, j + 1). For a height split's halo
+    (``parallel/sharding.py:halo_rows``)."""
+    lo, hi = (2 * iv[0] - 1) * s - 1, (2 * iv[1] + 3) * s - 1
+    return -(-lo // 2), -(-hi // 2) - 1     # ceil(lo / 2), ceil(hi / 2) - 1
+
+
+def reach_align_corners(iv: Tuple[int, int]) -> Tuple[int, int]:
+    """As :func:`reach_half_pixel`, through :func:`upsample2x_align_corners`:
+    src = o/2 - o/(2(2n-1)) lies in (o/2 - 1/2, o/2] for the rows o of the
+    frame, so row j, read where src is in [j - 1, j + 1), reaches the o in
+    [2j - 1, 2j + 2], whatever the frame's height."""
+    return 2 * iv[0] - 1, 2 * iv[1] + 2
 
 
 def resize_bilinear(x: torch.Tensor, out_hw: Tuple[int, int],

@@ -21,6 +21,8 @@ trained-through approximation, so a pyramid model runs the pyramid math.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 
@@ -71,6 +73,24 @@ def _pyramid_stride(rmax: int) -> int:
         if best_cost is None or cost < best_cost:
             best, best_cost = s, cost
     return best
+
+
+def row_reach(impl: str, max_flow: int) -> Optional[int]:
+    """How many rows away a backward warp by ``impl`` reads, frame and
+    field alike; None where any row may be read (``gather4`` and ``patch``
+    clip the sample point to the image, not to ``max_flow``). For a height
+    split's halo (``parallel/sharding.py:halo_rows``)."""
+    if impl == "shifts":
+        return max_flow + 1             # the taps at floor(y + d) and +1
+    if impl == "pyramid":
+        stride = _pyramid_stride(max_flow)
+        coarse = -(-max_flow // stride)
+        half = (stride + 1) // 2
+        if (2 * coarse + 1) + (2 * (stride + half) + 2) >= 2 * max_flow + 2:
+            return max_flow + 1         # it runs the shifts pass
+        # the fine pass's taps, then the coarse shift under each of them
+        return stride * coarse + stride + half + 1
+    return None
 
 
 def _warp_axis_pyramid(img: torch.Tensor, disp: torch.Tensor, axis: int,

@@ -40,11 +40,13 @@ def config_eligible(cfg) -> bool:
 
 def eligible(cfg, channels_last_shape) -> bool:
     """Whether the sampler (kernel or plain) serves this config and frame
-    shape: :func:`config_eligible`, gray or RGB frames of at least 2x2
-    pixels. The kernel reads its taps directly, so it has no width bound
-    (the JAX kernel's lane padding needs ``W >= 2*max_flow + 2``)."""
+    shape: :func:`config_eligible`, gray or RGB frames of 2 to 2^22 rows
+    and columns (the kernel's grid). The kernel reads its taps directly,
+    so it has no lower width bound (the JAX kernel's lane padding needs
+    ``W >= 2*max_flow + 2``)."""
     h, w, c = channels_last_shape[-3:]
-    return config_eligible(cfg) and c in (1, 3) and h >= 2 and w >= 2
+    return config_eligible(cfg) and c in (1, 3) and \
+        2 <= h <= 2 ** 22 and 2 <= w <= 2 ** 22
 
 
 def sample_fused_reference(f1: torch.Tensor, f2: torch.Tensor,

@@ -184,7 +184,15 @@ Drives the port only (it imports nothing of JAX or of the JAX package):
    than the visible cards refused with JAX's error; the production
    U-Net and flow engines with two replicas on cuda:0 within 1 LSB of
    the unmeshed engines at b8 1080p, each replica launching the head
-   (and the sampler) once, both timed.
+   (and the sampler) once, both timed; then the height split on cuda:0
+   (a mesh of two parts, b1): the production U-Net and flow engines
+   within 1 LSB of the unmeshed ones at 1080x1920 and 2160x3840 and on a
+   4-frame stream whose 1-pair tail splits by height, the head (and the
+   sampler) launched once per row window (the flow config's 1080p frame
+   is one window: its halo would make a window the whole frame), the
+   windows' rows computed printed beside the rows kept, each engine
+   timed at b1 beside the unmeshed one; and the U-Net with ``core_impl="pallas"`` at 2160x3840
+   (3 double-conv, 2 up-block and 1 head launch per window).
 
 Besides each kernel's launch counter, the wrappers that pick a route
 (``refine_head``, ``double_conv_fused``, ``up_double_conv_fused``) count
@@ -2006,6 +2014,112 @@ def dp_engines(smi) -> dict:
     return out
 
 
+def split_check(label, plain, meshed, f1, f2, per_window) -> dict:
+    """``meshed`` (a height split over two parts) against ``plain`` on one
+    batch, counts set to 0 just before the meshed call and read after:
+    within 1 LSB, each kernel of ``per_window`` launched that many times
+    in each window."""
+    from ai_based_frame_interpolation_torch.parallel.sharding import (
+        halo_rows, row_parts)
+
+    cfg = plain.cfg
+    hp = -(-f1.shape[1] // cfg.pad_multiple) * cfg.pad_multiple
+    parts = row_parts(hp, 2, cfg.pad_multiple, halo_rows(cfg))
+    want = plain.interpolate_batch(f1, f2)
+    reset_counts()
+    got = meshed.interpolate_batch(f1, f2)
+    counted = main_counts()
+    diff = np.abs(got.astype(np.int16) - want.astype(np.int16))
+    rec = {"launches": counted, "max_uint8_diff": int(diff.max()),
+           "share_over_1": float((diff > 1).mean()), "padded_rows": hp,
+           "windows": [[lo, hi] for _, _, lo, hi in parts],
+           "rows_computed": sum(hi - lo for _, _, lo, hi in parts),
+           "rows_kept": hp}
+    print(f"height split {label}: windows {rec['windows']} of {hp} padded "
+          f"rows ({rec['rows_computed']} computed, {hp} kept); max uint8 "
+          f"diff {rec['max_uint8_diff']}; launches {counted}", flush=True)
+    assert rec["max_uint8_diff"] <= 1, rec
+    assert counted == dict(NO_LAUNCHES, **{
+        k: len(parts) * v for k, v in per_window.items()}), counted
+    return rec
+
+
+def dp_height_split(smi) -> dict:
+    """The height split on cuda:0 (two parts of one card): the production
+    U-Net and flow engines against the unmeshed ones on a b1 pair at
+    1080x1920 and 2160x3840 (the head, and the flow sampler, once per
+    window) and on a 4-frame stream at batch_pairs 2 (its 1-pair tail
+    split by height), each engine timed at b1 beside the unmeshed one;
+    then the U-Net with ``core_impl="pallas"`` at 2160x3840 (the option
+    core in each window)."""
+    from ai_based_frame_interpolation_torch.config import ModelConfig
+    from ai_based_frame_interpolation_torch.infer.engine import (
+        InterpolationEngine)
+    from ai_based_frame_interpolation_torch.parallel import make_mesh
+
+    mesh = make_mesh(devices=["cuda:0", "cuda:0"])
+    out, launches = {}, collections.Counter()
+    for name, kw, seed, per_window in (
+            ("unet", PROD, 54, dict(refine_head=1)),
+            ("flow", FLOW_PROD, 55, dict(refine_head=1, sample_fused=1))):
+        cfg = ModelConfig(**kw)
+        plain = InterpolationEngine.random_init(cfg, seed=seed)
+        meshed = InterpolationEngine.random_init(cfg, seed=seed, mesh=mesh)
+        rec = {}
+        for hw in ((1080, 1920), (2160, 3840)):
+            f1, f2 = frames(1, *hw, seed=56)
+            rec[f"{hw[0]}p"] = split_check(f"{name} {hw[0]}x{hw[1]}", plain,
+                                           meshed, f1, f2, per_window)
+            rec.update(time_engine(plain, f"{name}_plain_{hw[0]}", smi,
+                                   ((1, 10),), hw))
+            rec.update(time_engine(meshed, f"{name}_split2_{hw[0]}", smi,
+                                   ((1, 10),), hw))
+        f1, f2 = frames(2, 1080, 1920, seed=57)
+        clip = [f1[0], f2[0], f1[1], f2[1]]
+        want = list(plain.interpolate_video_frames(clip, 2, batch_pairs=2))
+        reset_counts()
+        got = list(meshed.interpolate_video_frames(clip, 2, batch_pairs=2))
+        counted = main_counts()
+        diff = max(int(np.abs(a.astype(np.int16) - b.astype(np.int16)).max())
+                   for a, b in zip(got, want))
+        # the 2-pair batch split by batch (one launch a replica), the 1-pair
+        # tail by height (one a window; the flow config's 1080p frame runs
+        # whole, one window)
+        calls = 2 + len(rec["1080p"]["windows"])
+        rec["stream_tail"] = {"frames_out": len(got), "max_uint8_diff": diff,
+                              "launches": counted}
+        print(f"height split {name} stream of 4 frames at batch_pairs 2: "
+              f"{len(got)} frames, max uint8 diff {diff}; launches {counted}",
+              flush=True)
+        assert len(got) == len(want) == 7 and diff <= 1
+        assert counted == dict(NO_LAUNCHES, **{
+            k: calls * v for k, v in per_window.items()}), counted
+        for run in (rec["1080p"], rec["2160p"], rec["stream_tail"]):
+            launches[f"refine_head_{'w64' if name == 'unet' else 'w16'}"] += \
+                run["launches"]["refine_head"]
+            launches["sample_fused"] += run["launches"]["sample_fused"]
+        out[name] = rec
+        del plain, meshed
+    cfg = ModelConfig(**PROD)
+    plain = InterpolationEngine.random_init(cfg, seed=58, core_impl="pallas")
+    meshed = InterpolationEngine.random_init(cfg, seed=58, core_impl="pallas",
+                                             mesh=mesh)
+    f1, f2 = frames(1, 2160, 3840, seed=59)
+    rec = split_check("unet core_impl=pallas 2160x3840", plain, meshed, f1,
+                      f2, dict(refine_head=1, double_conv=3,
+                               up_double_conv=2))
+    rec.update(time_engine(plain, "unet_core_plain_2160", smi, ((1, 10),),
+                           (2160, 3840)))
+    rec.update(time_engine(meshed, "unet_core_split2_2160", smi, ((1, 10),),
+                           (2160, 3840)))
+    out["unet_core"] = rec
+    for k in ("refine_head", "double_conv", "up_double_conv"):
+        launches["refine_head_w64" if k == "refine_head" else k] += \
+            rec["launches"][k]
+    out["launches"] = dict(launches)
+    return out
+
+
 def parallel_path(record, smi) -> dict:
     """Phase 12 (module docstring): data parallel on the one card."""
     out = {"world_one": dp_world_one(smi)}
@@ -2013,8 +2127,10 @@ def parallel_path(record, smi) -> dict:
     assert all(out["two_ranks"][k]["ok"] for k in DP_STEPS), out["two_ranks"]
     out["cli_refused"] = dp_cli_refused()
     out["engines"] = dp_engines(smi)
+    out["height_split"] = dp_height_split(smi)
     ev = out["world_one"]["eval_launches"]
     launches = collections.Counter(out["engines"]["launches"])
+    launches.update(out["height_split"]["launches"])
     launches["refine_head_w64"] += ev["refine_head"]
     launches["ssim_eval"] += ev["ssim_eval"]
     out["launches"] = dict(launches)
@@ -2575,19 +2691,21 @@ def time_png_decode(smi) -> dict:
     return out
 
 
-def time_engine(engine, label, smi, sizes) -> dict:
-    """ms per 1080p gray 2x call, midpoints/s and output fps (originals +
-    midpoints, as bench.py counts them) at each (batch, iterations)."""
+def time_engine(engine, label, smi, sizes, hw=(1080, 1920)) -> dict:
+    """ms per gray 2x call at ``hw`` (1080p), midpoints/s and output fps
+    (originals + midpoints, as bench.py counts them) at each (batch,
+    iterations)."""
     out = {}
     fn = engine._pair_fn(1, 1)
     for b, iters in sizes:
-        g1, g2 = frames(b, 1080, 1920, seed=3)
+        g1, g2 = frames(b, *hw, seed=3)
         d1, d2 = engine._put(g1), engine._put(g2)
         ms = cuda_ms(lambda: fn(engine.model, d1, d2), iters, warmup=1)
         pairs_s = b / (ms / 1e3)
         out[f"{label}_b{b}"] = {"ms_per_call": ms, "midpoints_per_s": pairs_s,
                                 "output_fps": 2 * pairs_s}
-        print(f"[{smi}] {label} engine 1080p gray 2x b={b}: {ms:.3f} ms/call, "
+        print(f"[{smi}] {label} engine {hw[0]}x{hw[1]} gray 2x b={b}: "
+              f"{ms:.3f} ms/call, "
               f"{pairs_s:.3f} midpoints/s, {2 * pairs_s:.3f} output fps",
               flush=True)
         del d1, d2
@@ -3952,10 +4070,10 @@ def main() -> int:
              evals["unet_1080"]["launches"]["ssim_eval"],
              ssim_errs["8x1080x1920"], "ssim_eval_8x1080x1920"),
             ("double_conv", "double_conv.cu", "dconv_fused.py:164",
-             core_launches["double_conv"], record["double_conv_max_abs_err"],
-             "double_conv_b8"),
+             core_launches["double_conv"] + dp_launches["double_conv"],
+             record["double_conv_max_abs_err"], "double_conv_b8"),
             ("up_double_conv", "double_conv.cu", "dconv_fused.py:411",
-             core_launches["up_double_conv"],
+             core_launches["up_double_conv"] + dp_launches["up_double_conv"],
              record["up_double_conv_max_abs_err"], "up_double_conv_b8"),
             ("refine_head_dw", "refine_head.cu", "refine_fused.py:417",
              dw_launches["refine_head"], record["refine_head_dw_max_abs_err"],

@@ -125,8 +125,7 @@ def test_png_gray_alpha_and_encoder_round_trip(tmp_path):
 
 def test_png_refuses_what_it_does_not_read(tmp_path, monkeypatch):
     # other formats go through OpenCV where it is installed; without it a
-    # JPEG raises naming OpenCV and the ROADMAP item, and the port writes
-    # PNG only
+    # JPEG raises naming OpenCV and the ROADMAP, on reading and on writing
     path = str(tmp_path / "frame.jpg")
     assert cv2.imwrite(path, _image(6, 8, 1)[..., 0])
     assert np.array_equal(load_image(path),
@@ -134,7 +133,7 @@ def test_png_refuses_what_it_does_not_read(tmp_path, monkeypatch):
     monkeypatch.setitem(__import__("sys").modules, "cv2", None)
     with pytest.raises(ImportError, match="OpenCV.*ROADMAP"):
         load_image(path)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ImportError, match="OpenCV.*ROADMAP"):
         save_image(path, _image(6, 8, 1))
     data = bytearray(encode_png(_image(4, 4, 1)))
     data[24] = 16                                   # bit depth 16

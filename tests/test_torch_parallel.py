@@ -663,13 +663,204 @@ def test_meshed_engine_matches_jax_and_the_unmeshed_one(engines, fam):
         assert int(np.abs(got.astype(int) - want.astype(int)).max()) <= 1
 
 
-def test_meshed_engine_refuses_a_height_split(engines):
-    # batch 1 on 2 cards: JAX splits H; the port names the ROADMAP item
-    meshed, _, _ = engines["unet"]
-    f = np.zeros((64, 64, 1), np.uint8)
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP Queue A, spatial sharding"):
-        meshed.interpolate_pair(f, f)
+@pytest.mark.parametrize("fam", list(ENGINES))
+def test_height_split_matches_jax_and_the_unmeshed_one(engines, fam):
+    # batch 1 on 2 cards: JAX splits H (test_parallel_infer.py's spatial
+    # tests); the port runs each pass over row windows: within 1 LSB of
+    # the unmeshed engine and of JAX's (the flow family by
+    # _assert_flow_close)
+    from test_parallel_infer import _assert_flow_close
+
+    meshed, plain, jeng = engines[fam]
+    gen = np.random.default_rng(9)
+    f1, f2 = (gen.integers(0, 255, (64, 64, 1), np.uint8) for _ in range(2))
+    got = meshed.interpolate_pair(f1, f2)
+    assert int(np.abs(got.astype(int) - plain.interpolate_pair(
+        f1, f2).astype(int)).max()) <= 1
+    want = jeng.interpolate_pair(f1, f2)
+    if fam == "flow":
+        _assert_flow_close(got, want)
+    else:
+        assert int(np.abs(got.astype(int) - want.astype(int)).max()) <= 1
+
+
+# configs whose windows cut the frame: (config, frame height, windows that
+# must be shorter than the padded frame)
+SPLITS = {
+    # production-shaped at base 8: 1088 rows, 17 units of 64 cut 9/8; the
+    # flow config's 512-row halo would make the first window the whole
+    # 1088-row frame, so it takes 1216 rows, 19 units cut 10/9
+    "unet_prod": (dict(base_width=8, space_to_depth=4, residual=True,
+                       refine_width=8, upsample="half_pixel"), 1088, 1),
+    "flow_prod": (dict(arch="flow", base_width=8, flow_scale=4,
+                       refine_width=16, max_flow=16), 1216, 2),
+    # the align-corners decoder: 512 rows, 32 units of 16 cut 16/16
+    "align_corners": (dict(base_width=4), 512, 2),
+}
+
+
+def _mesh_pair(kw, **extra):
+    """The unmeshed and the 2-part meshed f32 CPU engines on the same
+    random weights."""
+    tk = dict(compute_dtype=torch.float32, device="cpu", **extra)
+    cfg = TConfig(**kw)
+    return (TEngine.random_init(cfg, seed=4, **tk),
+            TEngine.random_init(cfg, seed=4,
+                                mesh=make_mesh(devices=["cpu", "cpu"]), **tk))
+
+
+@pytest.mark.parametrize("name", list(SPLITS))
+def test_height_split_windows_keep_the_whole_frames_rows(name):
+    from ai_based_frame_interpolation_torch.parallel.sharding import (
+        halo_rows, row_parts)
+
+    kw, h, shorter = SPLITS[name]
+    plain, meshed = _mesh_pair(kw)
+    cfg = plain.cfg
+    parts = row_parts(h, 2, cfg.pad_multiple, halo_rows(cfg))
+    assert len(parts) == 2
+    assert sum(hi - lo < h for _, _, lo, hi in parts) >= shorter, parts
+    gen = np.random.default_rng(10)
+    f1, f2 = (gen.integers(0, 255, (1, h, 64, 1), np.uint8)
+              for _ in range(2))
+    got = meshed.interpolate_batch(f1, f2)
+    assert int(np.abs(got.astype(int) - plain.interpolate_batch(
+        f1, f2).astype(int)).max()) <= 1
+
+
+def test_row_parts_cut_at_the_pad_multiple():
+    from ai_based_frame_interpolation_torch.parallel.sharding import (
+        halo_rows, row_parts)
+
+    # 1080p at the production U-Net's halo: windows of 1024 and 960 rows
+    assert halo_rows(TConfig(**SPLITS["unet_prod"][0])) == 448
+    assert row_parts(1088, 2, 64, 448) == [(0, 576, 0, 1024),
+                                            (576, 1088, 128, 1088)]
+    # 4K: 34 units cut 17/17, windows of 1536
+    assert row_parts(2176, 2, 64, 448) == [(0, 1088, 0, 1536),
+                                            (1088, 2176, 640, 2176)]
+    # 1080p at the production flow config's halo: the first window would
+    # be the whole frame, so the first card runs it alone
+    assert halo_rows(TConfig(**SPLITS["flow_prod"][0])) == 512
+    assert row_parts(1088, 2, 64, 512) == [(0, 1088, 0, 1088)]
+    # 6 units on 8 parts: the last two do not run; no halo bound: one part
+    assert [p[:2] for p in row_parts(96, 8, 16, 16)] == [
+        (0, 16), (16, 32), (32, 48), (48, 64), (64, 80), (80, 96)]
+    assert row_parts(64, 2, 16, None) == [(0, 64, 0, 64)]
+    assert halo_rows(TConfig(arch="flow", warp_impl="gather4")) is None
+
+
+def test_a_process_groups_mesh_refuses_a_height_split():
+    with pytest.raises(ValueError, match="splits the batch"):
+        put_frames(np.zeros((1, 64, 8, 1), np.uint8), _rank_mesh(0, 2))
+
+
+@pytest.mark.parametrize("kind", ["unet_video", "flow_retime",
+                                  "tower_stream"])
+def test_height_split_streams_match_the_unmeshed_engine(kind):
+    # 3 pairs at batch_pairs 2: the batch of 2 pairs splits by batch, the
+    # 1-pair tail by height (the tower's 3-frame step by height); 256 rows
+    # so the windows cut
+    kw = {"unet_video": dict(base_width=4),
+          "flow_retime": dict(arch="flow", base_width=4, flow_scale=2),
+          "tower_stream": dict(arch="tower", base_width=8)}[kind]
+    plain, meshed = _mesh_pair(kw)
+    gen = np.random.default_rng(11)
+    frames = list(gen.integers(0, 255, (4, 256, 32, 1), np.uint8))
+
+    def run(engine):
+        if kind == "flow_retime":
+            return list(engine.retime_video_frames(frames, 2.5,
+                                                   batch_pairs=2))
+        return list(engine.interpolate_video_frames(frames, 2,
+                                                    batch_pairs=2))
+
+    got, want = run(meshed), run(plain)
+    assert len(got) == len(want) > 4
+    assert max(int(np.abs(a.astype(int) - b.astype(int)).max())
+               for a, b in zip(got, want)) <= 1
+
+
+# how far one input row reaches, per config (the perturbed model's
+# forward in f32 at 1152x64): the config, then build_model's options and
+# whether the U-Net's decoder fuses its upsample (UP_POLYPHASE)
+REACH = {
+    "unet_prod": (SPLITS["unet_prod"][0], {}, False),
+    "flow_prod": (SPLITS["flow_prod"][0], {}, False),
+    "flow_bidir_cascade": (dict(SPLITS["flow_prod"][0], flow_bidir=True,
+                                flow_cascade=1), {}, False),
+    "flow_pyramid": (dict(SPLITS["flow_prod"][0], warp_impl="pyramid"), {},
+                     False),
+    "align_corners": (dict(base_width=4), {}, False),
+    "unet_polyphase": (SPLITS["unet_prod"][0], {}, True),
+    "unet_core_pack": (SPLITS["unet_prod"][0], dict(folded=True, pack=2),
+                       False),
+    "tower": (dict(arch="tower", base_width=8, space_to_depth=4,
+                   residual=True, refine_width=8, time_conditioned=True,
+                   slim_decoder=True), {}, False),
+}
+
+
+@pytest.mark.parametrize("name", list(REACH))
+def test_halo_rows_is_wide_enough(name, monkeypatch):
+    # one row of frame 1 moved at three heights: no output row farther
+    # than halo_rows from that row's block of pad_multiple rows moves
+    from ai_based_frame_interpolation_torch.models import unet as t_unet
+    from ai_based_frame_interpolation_torch.parallel.sharding import (
+        halo_rows)
+
+    kw, opts, polyphase = REACH[name]
+    monkeypatch.setattr(t_unet, "UP_POLYPHASE", polyphase)
+    cfg = TConfig(**kw)
+    torch.manual_seed(12)
+    model = t_build(cfg, torch.float32, **opts).eval()
+    if opts.get("pack", 1) > 1:
+        # every packed item on the same weights, as the engine's packed core
+        model.load_state_dict(t_unet.tile_params_packed(t_build(
+            cfg, torch.float32, folded=True).state_dict(), opts["pack"]))
+    m, halo = cfg.pad_multiple, halo_rows(cfg)
+    gen = np.random.default_rng(12)
+    x1, x2 = (torch.from_numpy(gen.uniform(-1, 1, (1, 1, 1152, 64))
+                               .astype(np.float32)) for _ in range(2))
+    rows = (300, 577, 842)
+    a = x1.repeat(4, 1, 1, 1)
+    for i, p in enumerate(rows):
+        a[i + 1, :, p] += 0.5
+    with torch.no_grad():
+        y = model(a, x2.repeat(4, 1, 1, 1))
+    for i, p in enumerate(rows):
+        moved = torch.nonzero((y[i + 1] != y[0]).any(0).any(-1))[:, 0]
+        first, last = int(moved.min()), int(moved.max())
+        block = p - p % m
+        assert block - first <= halo and last - (block + m - 1) <= halo, (
+            p, first, last, halo)
+
+
+def test_the_windowed_align_corners_upsample_is_the_whole_ones():
+    # given rows=(first, total), each window's output rows whose taps lie
+    # in the window are the whole map's, bit for bit in f32 (ops/resize.py
+    # and the option core's channels-last form)
+    from ai_based_frame_interpolation_torch.models.core_t import (
+        _upsample2x_t)
+    from ai_based_frame_interpolation_torch.ops.resize import (
+        _align_corners_taps, upsample2x_align_corners)
+
+    gen = np.random.default_rng(13)
+    x = torch.from_numpy(gen.standard_normal((2, 3, 64, 12))
+                         .astype(np.float32))
+    full = upsample2x_align_corners(x)
+    full_t = _upsample2x_t(x.permute(0, 2, 3, 1))
+    assert torch.equal(upsample2x_align_corners(x, (0, 64)), full)
+    lo, hi, _ = _align_corners_taps(64)
+    for first, n in ((0, 16), (16, 32), (40, 24), (8, 40)):
+        win = x[:, :, first:first + n]
+        o = np.arange(2 * first, 2 * (first + n))
+        inside = torch.from_numpy((lo[o] >= first) & (hi[o] < first + n))
+        assert int(inside.sum()) >= 2 * n - 2
+        got = upsample2x_align_corners(win, (first, 64))
+        assert torch.equal(got[:, :, inside], full[:, :, o[inside]])
+        got_t = _upsample2x_t(win.permute(0, 2, 3, 1), (first, 64))
+        assert torch.equal(got_t[:, inside], full_t[:, o[inside]])
 
 
 def test_meshed_engine_replicates_where_nothing_divides(engines):
