@@ -15,6 +15,14 @@ their ``_file`` forms) batch consecutive pairs, assemble the output on
 the host (``ops/native.py``) and, for 2x/4x, queue batch k+1 on the card
 before they drain batch k (``_Transfers``).
 
+Every dispatch of the model, from any entry, counts ``engine.dispatches``
+and runs its host steps in the spans ``engine.upload`` (host to card),
+``engine.enqueue`` (the host issuing the model's work) and
+``engine.download`` (the host waiting for the output and copying it
+back), and a stream's batch its interleave in ``stream.interleave``
+(``utils/profiling.py``: recorded while a profiler runs, one flag check
+otherwise). No span stays open across a ``yield``.
+
 With ``mesh`` (an engine mesh, ``parallel/mesh.py``) the engine keeps a
 replica of its folded weights on each card of the mesh and splits each
 dispatch as JAX's ``choose_spec`` does: the batch into equal chunks, one a
@@ -45,6 +53,7 @@ from ..ops import native, warp_fused
 from ..ops.image import denormalize_to_uint8, normalize_uint8
 from ..ops.resize import crop_to, pad_to_multiple
 from ..parallel.sharding import choose_spec, halo_rows, put_frames, row_parts
+from ..utils.profiling import annotate, count
 
 
 _CORE_IMPLS = ("xla", "auto", "pallas")
@@ -59,6 +68,24 @@ def resolve_device(device=None) -> torch.device:
         raise RuntimeError("no CUDA device: pass device='cpu' to run the "
                            "port on the CPU")
     return torch.device("cuda")
+
+
+def dispatch(engine, fn, arrays: Sequence[np.ndarray]) -> np.ndarray:
+    """One dispatch of an entry on host arrays: each of ``arrays`` to the
+    engine's device (``_put``, a pageable copy), ``fn(engine.variables,
+    *tensors)``, its output back on the host, each step in its span."""
+    count("engine.dispatches")
+    with annotate("engine.upload"):
+        xs = [engine._put(a) for a in arrays]
+    with annotate("engine.enqueue"):
+        out = fn(engine.variables, *xs)
+    return _download(out)
+
+
+def _download(out: torch.Tensor) -> np.ndarray:
+    """``out`` on the host: the wait for it and the copy."""
+    with annotate("engine.download"):
+        return out.cpu().numpy()
 
 
 def _bisect(fwd, model, x1, x2, depth: int) -> List[torch.Tensor]:
@@ -680,13 +707,21 @@ class InterpolationEngine:
         drained; a single frame passes through."""
         io = _Transfers(self.device)
 
-        def dispatch(run: List[np.ndarray]):
-            host, dev = io.upload(run)
-            return host, step(dev), io.mark()
+        def queue(run: List[np.ndarray]):
+            count("engine.dispatches")
+            with annotate("engine.upload"):
+                host, dev = io.upload(run)
+            with annotate("engine.enqueue"):
+                out = step(dev)
+                done = io.mark()
+            return host, out, done
 
         def emit(batch, final: bool):
             host, out, done = batch
-            stream = native.interleave(host, io.download(out, done))
+            with annotate("engine.download"):
+                out = io.download(out, done)
+            with annotate("stream.interleave"):
+                stream = native.interleave(host, out)
             end = len(stream) if final else len(stream) - 1
             for i in range(end):
                 yield stream[i]
@@ -696,13 +731,13 @@ class InterpolationEngine:
         for frame in frames:
             run.append(np.asarray(frame))
             if len(run) == batch_pairs + 1:
-                batch = dispatch(run)             # dispatch k+1 ...
+                batch = queue(run)                # dispatch k+1 ...
                 run = [run[-1]]
                 if in_flight is not None:
                     yield from emit(in_flight, final=False)  # ... drain k
                 in_flight = batch
         if len(run) >= 2:
-            batch = dispatch(run)
+            batch = queue(run)
             if in_flight is not None:
                 yield from emit(in_flight, final=False)
             in_flight = batch
@@ -726,10 +761,9 @@ class InterpolationEngine:
             raise ValueError(
                 "interpolate_at requires a time_conditioned model; "
                 "use generate_intermediate_frames (bisection) instead")
-        ts = torch.tensor(list(times), dtype=torch.float32, device=self.device)
-        out = self._time_fn(len(times))(self.model, self._put(f1[None]),
-                                        self._put(f2[None]), ts)
-        out = out[0].cpu().numpy()
+        ts = np.asarray(list(times), np.float32)
+        out = dispatch(self, self._time_fn(len(times)),
+                       (f1[None], f2[None], ts))[0]
         return [out[i] for i in range(len(times))]
 
     def interpolate_pair(self, f1: np.ndarray, f2: np.ndarray) -> np.ndarray:
@@ -738,8 +772,7 @@ class InterpolationEngine:
 
     def interpolate_batch(self, f1: np.ndarray, f2: np.ndarray) -> np.ndarray:
         """Batched midpoints: [B,H,W,C] u8 x2 -> [B,H,W,C] u8."""
-        out = self._pair_fn(1, 1)(self.model, self._put(f1), self._put(f2))
-        return out[:, 0].cpu().numpy()
+        return dispatch(self, self._pair_fn(1, 1), (f1, f2))[:, 0]
 
     def generate_intermediate_frames(self, f1: np.ndarray, f2: np.ndarray,
                                      num: int) -> List[np.ndarray]:
@@ -749,9 +782,8 @@ class InterpolationEngine:
         if num < 1:
             raise ValueError("num must be >= 1")
         depth = max(1, math.ceil(math.log2(num + 1)))
-        out = self._pair_fn(num, depth)(self.model, self._put(f1[None]),
-                                        self._put(f2[None]))
-        out = out[0].cpu().numpy()
+        out = dispatch(self, self._pair_fn(num, depth),
+                       (f1[None], f2[None]))[0]
         return [out[i] for i in range(num)]
 
     def interpolate_video_frames(
@@ -847,11 +879,15 @@ class InterpolationEngine:
                 tmat = np.stack([np.asarray(
                     j[3] + [j[3][-1]] * (m - len(j[3])), np.float32)
                     for j in need], axis=1)
-                _, dev = io.upload([j[0] for j in need] +
-                                   [j[1] for j in need])
-                out = self._time_fn(m)(
-                    self.model, dev[:len(need)], dev[len(need):],
-                    torch.from_numpy(tmat).to(self.device)).cpu().numpy()
+                count("engine.dispatches")
+                with annotate("engine.upload"):
+                    _, dev = io.upload([j[0] for j in need] +
+                                       [j[1] for j in need])
+                    ts = torch.from_numpy(tmat).to(self.device)
+                with annotate("engine.enqueue"):
+                    out = self._time_fn(m)(self.model, dev[:len(need)],
+                                           dev[len(need):], ts)
+                out = _download(out)
                 for row, j in enumerate(need):
                     mids[id(j)] = out[row]
             for j in jobs:

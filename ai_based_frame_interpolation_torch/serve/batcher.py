@@ -10,6 +10,10 @@
 - Batches are padded up to a bucket size (1/2/4/8 by default) by repeating
   the last pair, so the engine sees a few batch shapes only.
 - ``window_ms`` adds an optional straggler wait before each dispatch.
+- ``stats`` adds to JAX's the mean wait from a request's arrival to the
+  start of its group's batched call (``avg_queue_wait_ms``); the batched
+  call is one engine dispatch (``infer.engine.dispatch``), in the
+  engine's spans.
 
 One difference: the leading request forms the group as in JAX's design,
 but the batched call runs on one thread of the batcher's own (started at
@@ -23,14 +27,17 @@ from __future__ import annotations
 
 import math
 import threading
+import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import List, Optional, Sequence
 
 import numpy as np
 
+from ..infer.engine import dispatch
+
 
 class _Item:
-    __slots__ = ("f1", "f2", "num", "result", "error", "done")
+    __slots__ = ("f1", "f2", "num", "result", "error", "done", "arrived")
 
     def __init__(self, f1: np.ndarray, f2: np.ndarray, num: int):
         self.f1 = f1
@@ -39,6 +46,7 @@ class _Item:
         self.result: Optional[List[np.ndarray]] = None
         self.error: Optional[BaseException] = None
         self.done = False
+        self.arrived = time.perf_counter()
 
 
 class DynamicBatcher:
@@ -67,6 +75,7 @@ class DynamicBatcher:
         self.dispatches = 0
         self.batched_requests = 0
         self.max_seen_batch = 0
+        self.queue_wait_s = 0.0         # summed over the requests batched
 
     def generate_intermediate_frames(self, f1: np.ndarray, f2: np.ndarray,
                                      num: int) -> List[np.ndarray]:
@@ -134,14 +143,15 @@ class DynamicBatcher:
     def _run_batch(self, group: List[_Item]) -> None:
         num = group[0].num
         n = len(group)
+        now = time.perf_counter()
+        self.queue_wait_s += sum(now - it.arrived for it in group)
         padded = next(b for b in self.buckets if b >= n)
         f1 = np.stack([it.f1 for it in group] + [group[-1].f1] * (padded - n))
         f2 = np.stack([it.f2 for it in group] + [group[-1].f2] * (padded - n))
         try:
             depth = max(1, math.ceil(math.log2(num + 1)))
-            out = self.engine._pair_fn(num, depth)(
-                self.engine.variables, self.engine._put(f1),
-                self.engine._put(f2)).cpu().numpy()
+            out = dispatch(self.engine, self.engine._pair_fn(num, depth),
+                           (f1, f2))
             for b, it in enumerate(group):
                 it.result = [out[b, i] for i in range(num)]
         except BaseException as e:  # noqa: BLE001 — delivered to every waiter
@@ -158,4 +168,7 @@ class DynamicBatcher:
                 "max_batch_seen": self.max_seen_batch,
                 "avg_batch": round(self.batched_requests /
                                    self.dispatches, 2)
-                if self.dispatches else None}
+                if self.dispatches else None,
+                "avg_queue_wait_ms": round(1e3 * self.queue_wait_s /
+                                           self.batched_requests, 3)
+                if self.batched_requests else None}

@@ -7,6 +7,7 @@ from __future__ import annotations
 import logging
 import os
 import sys
+import threading
 import time
 from typing import Optional
 
@@ -34,40 +35,70 @@ class StageTimer:
         timer = StageTimer()
         with timer.stage("decode"):
             ...
-        timer.summary()  # {'decode': {'seconds': ..., 'count': ...}, ...}
+        timer.summary()
+        # {'decode': {'seconds': ..., 'count': ..., 'self_seconds': ...}}
 
-    The host's clock: work queued on a card inside a stage is counted only
-    as far as the stage waits for it."""
+    A stage's self seconds are its seconds less those of the stages opened
+    inside it on the same thread. The host's clock: work queued on a card
+    inside a stage is counted only as far as the stage waits for it. The
+    port's spans (``utils/profiling.py``) keep their totals in one of
+    these."""
 
     def __init__(self):
         self.totals: dict = {}
+        self._lock = threading.Lock()
+        self._open = threading.local()
 
     class _Ctx:
+        """One stage while it runs: ``parent`` is the stage open around it
+        on its thread."""
+
         def __init__(self, timer: "StageTimer", name: str):
             self.timer = timer
             self.name = name
 
         def __enter__(self):
-            self.t0 = time.perf_counter()
+            stack = self.timer._stack()
+            self.parent = stack[-1] if stack else None
+            self.inner_ns = 0
+            stack.append(self)
+            self.t0 = time.perf_counter_ns()
             return self
 
         def __exit__(self, *exc):
-            dt = time.perf_counter() - self.t0
-            entry = self.timer.totals.setdefault(self.name,
-                                                 {"seconds": 0.0, "count": 0})
-            entry["seconds"] += dt
-            entry["count"] += 1
+            took = time.perf_counter_ns() - self.t0
+            self.timer._stack().pop()
+            if self.parent is not None:
+                self.parent.inner_ns += took
+            with self.timer._lock:
+                entry = self.timer.totals.setdefault(
+                    self.name,
+                    {"seconds": 0.0, "count": 0, "self_seconds": 0.0})
+                entry["seconds"] += took * 1e-9
+                entry["self_seconds"] += (took - self.inner_ns) * 1e-9
+                entry["count"] += 1
+
+    def _stack(self) -> list:
+        stack = getattr(self._open, "stack", None)
+        if stack is None:
+            stack = self._open.stack = []
+        return stack
 
     def stage(self, name: str) -> "StageTimer._Ctx":
         return StageTimer._Ctx(self, name)
 
     def summary(self) -> dict:
-        return {k: dict(v) for k, v in self.totals.items()}
+        with self._lock:
+            return {k: dict(v) for k, v in self.totals.items()}
 
     def log_summary(self, log_fn=print) -> None:
-        """One line per stage, the longest first, with its share."""
-        total = sum(v["seconds"] for v in self.totals.values()) or 1e-9
-        for name, v in sorted(self.totals.items(),
+        """One line per stage, the longest first, with its share of the
+        stages' self seconds and its own."""
+        totals = self.summary()
+        total = sum(v["self_seconds"] for v in totals.values()) or 1e-9
+        for name, v in sorted(totals.items(),
                               key=lambda kv: -kv[1]["seconds"]):
             log_fn(f"  {name:12s} {v['seconds']:8.3f}s "
-                   f"({100 * v['seconds'] / total:5.1f}%)  x{v['count']}")
+                   f"(self {v['self_seconds']:.3f}s, "
+                   f"{100 * v['self_seconds'] / total:5.1f}%)  "
+                   f"x{v['count']}")

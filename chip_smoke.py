@@ -2433,59 +2433,38 @@ def check_video(label, got, originals, mids, launches, routes, want_launches,
             "max_uint8_diff_vs_pairs": du}
 
 
-@contextlib.contextmanager
-def stream_timers(split):
-    """Host clocks around a stream's host steps: the pinned upload
-    (stacking the frames and queueing the copy), the download (waiting for
-    the batch and its copy out) and the interleave, summed into ``split``
-    (seconds)."""
-    from ai_based_frame_interpolation_torch.infer import engine as eng
-    from ai_based_frame_interpolation_torch.ops import native
-
-    saved = (eng._Transfers.upload, eng._Transfers.download,
-             native.interleave)
-
-    def timed(key, fn):
-        def run(*args, **kwargs):
-            t0 = time.perf_counter()
-            out = fn(*args, **kwargs)
-            split[key] = split.get(key, 0.0) + time.perf_counter() - t0
-            return out
-        return run
-
-    eng._Transfers.upload = timed("upload_s", saved[0])
-    eng._Transfers.download = timed("download_wait_s", saved[1])
-    native.interleave = timed("interleave_s", saved[2])
-    try:
-        yield split
-    finally:
-        eng._Transfers.upload, eng._Transfers.download, \
-            native.interleave = saved
+# the port's spans (utils/profiling.py) that time a stream's host steps,
+# under the keys of this smoke's record
+STREAM_SPLIT = {"engine.upload": "upload_s", "engine.enqueue": "enqueue_s",
+                "engine.download": "download_wait_s",
+                "stream.interleave": "interleave_s"}
 
 
 def time_stream(smi, label, run, frames) -> dict:
     """One warm run of a stream generator over ``frames`` (in host memory),
-    host clock over the whole generator; one more with the host steps
-    timed (``stream_timers``; the rest is the engine's enqueue of the
-    model and the generator); then one under torch.profiler for the
-    device's busy share."""
+    host clock over the whole generator; then one under torch.profiler
+    for the device's busy share and the host split the port's spans
+    record (``STREAM_SPLIT``; the rest is the generator's own work)."""
+    from ai_based_frame_interpolation_torch.utils import profiling
+
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     n = sum(1 for _ in run(frames))
     s = time.perf_counter() - t0
-    with stream_timers({}) as split:
-        t0 = time.perf_counter()
-        sum(1 for _ in run(frames))
-        split["total_s"] = time.perf_counter() - t0
+    profiling.reset()
+    wall_ms, busy_ms = device_busy_ms(lambda: sum(1 for _ in run(frames)))
+    totals = profiling.totals()
+    split = {key: totals.get(span, {}).get("seconds", 0.0)
+             for span, key in STREAM_SPLIT.items()}
+    split["total_s"] = wall_ms / 1e3
     split["rest_s"] = split["total_s"] - sum(
         v for k, v in split.items() if k != "total_s")
-    wall_ms, busy_ms = device_busy_ms(lambda: sum(1 for _ in run(frames)))
     share = None if busy_ms is None else busy_ms / wall_ms
     print(f"[{smi}] video {label}: {len(frames)} 1080p frames in, {n} out in "
-          f"{s * 1e3:.3f} ms, {n / s:.3f} output fps (host clock); a timed "
-          f"run's host split, ms: " + ", ".join(
+          f"{s * 1e3:.3f} ms, {n / s:.3f} output fps (host clock); the "
+          f"profiled run's host split, ms: " + ", ".join(
               f"{k[:-2]} {v * 1e3:.3f}" for k, v in split.items()) +
-          f"; profiled run {wall_ms:.3f} ms, device busy "
+          f"; device busy "
           f"{'not recorded' if busy_ms is None else f'{busy_ms:.3f} ms'}",
           flush=True)
     return {"frames_in": len(frames), "frames_out": n, "seconds": s,

@@ -123,3 +123,50 @@ def test_engine_without_a_card_needs_an_explicit_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         TEngine.random_init(TConfig(**CASES["production"][0]))
+
+
+def test_each_entry_runs_its_dispatches_in_the_engine_spans(monkeypatch):
+    """With the profiler's flag up, each dispatch of ``interpolate_batch``,
+    ``generate_intermediate_frames``, the batcher and a 2x stream records
+    one upload, enqueue and download, a stream batch one interleave;
+    ``engine.dispatches`` counts them; the stream's spans are closed
+    whenever it yields, so the consumer's span between two frames opens
+    inside none of them. (The flag alone, not a profiler: starting the
+    first session costs seconds of CPU; ``test_torch_utils.py`` runs the
+    spans under real sessions.)"""
+    from ai_based_frame_interpolation_torch.utils import profiling
+
+    monkeypatch.setattr(torch.autograd.profiler, "_is_profiler_enabled",
+                        True)
+
+    eng = TEngine.random_init(TConfig(**CASES["production"][0]), seed=0,
+                              compute_dtype=torch.float32, device="cpu")
+    batcher = DynamicBatcher(eng, max_batch=4)
+    f1, f2 = _pairs(5, 32, 48, seed=3)
+    host = ("engine.upload", "engine.enqueue", "engine.download")
+
+    def recorded(run):
+        profiling.reset()
+        run()
+        return ({k: v["count"] for k, v in profiling.totals().items()},
+                profiling.counters().get("engine.dispatches"))
+
+    for run in (lambda: eng.interpolate_batch(f1[:2], f2[:2]),
+                lambda: eng.generate_intermediate_frames(f1[0], f2[0], 3),
+                lambda: batcher.interpolate_pair(f1[0], f2[0])):
+        assert recorded(run) == (dict.fromkeys(host, 1), 1)
+    assert batcher.stats["avg_queue_wait_ms"] >= 0
+    batcher.close()
+
+    def consume():
+        for _ in eng.interpolate_video_frames(iter(f1), 2, batch_pairs=2):
+            with profiling.annotate("consumer"):
+                torch.ones(4).sum()
+
+    got, n = recorded(consume)
+    assert n == 2                                 # 4 pairs, 2 a batch
+    assert got == {**dict.fromkeys(host + ("stream.interleave",), 2),
+                   "consumer": 9}
+    # a span with no span inside it has self seconds equal to its seconds
+    for k, v in profiling.totals().items():
+        assert v["self_seconds"] == v["seconds"], k

@@ -278,7 +278,9 @@ def test_catalog_model_info_and_health_match_jax(unet):
     want = unet.jax.health()
     assert health.keys() == want.keys()
     assert health["backend"] == want["backend"] == "cpu"
-    assert health["batching"].keys() == want["batching"].keys()
+    # the port's batcher adds its mean queue wait to JAX's stats
+    assert health["batching"].keys() == want["batching"].keys() | {
+        "avg_queue_wait_ms"}
 
 
 # ---------------------------------------------------------------------------

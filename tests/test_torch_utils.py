@@ -11,6 +11,7 @@ import logging
 import struct
 import sys
 import time
+import types
 import zlib
 
 import numpy as np
@@ -22,8 +23,10 @@ from ai_based_frame_interpolation_torch.ops.image import (
 from ai_based_frame_interpolation_torch.ops.png import SIGNATURE, chunk
 from ai_based_frame_interpolation_torch.utils.logging import (
     StageTimer, get_logger)
+from ai_based_frame_interpolation_torch.utils import logging as fi_logging
+from ai_based_frame_interpolation_torch.utils import profiling
 from ai_based_frame_interpolation_torch.utils.profiling import (
-    annotate, device_memory_stats, trace)
+    annotate, count, counters, device_memory_stats, totals, trace)
 
 
 def test_stage_timer_accumulates():
@@ -65,6 +68,60 @@ def test_trace_writes_a_chrome_trace_with_the_annotation(tmp_path,
     names = {e.get("name") for e in json.loads(path.read_text())[
         "traceEvents"]}
     assert "fi_region" in names
+
+
+def test_spans_without_a_profiler_cost_one_flag_check(monkeypatch):
+    """No profiler: ``annotate`` hands back one shared no-op context and
+    ``count`` None, entering no ``record_function``, reading no clock and
+    recording nothing."""
+    def refused(*args, **kwargs):
+        raise AssertionError("touched with no profiler running")
+
+    profiling.reset()
+    monkeypatch.setattr(torch.profiler, "record_function", refused)
+    monkeypatch.setattr(fi_logging, "time",
+                        types.SimpleNamespace(perf_counter_ns=refused))
+    assert not torch.autograd.profiler._is_profiler_enabled
+    first = annotate("engine.upload")
+    assert first is annotate("engine.download")
+    with first:
+        pass
+    assert count("engine.dispatches") is None
+    assert totals() == {} and counters() == {}
+
+
+def test_spans_under_a_profiler_and_a_second_session(tmp_path):
+    """Under a profiler each span is a range on its timeline and adds to
+    the totals, self seconds being the seconds less the children's; the
+    counters; and a second session, ``trace``'s, reads only its own."""
+    profiling.reset()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        count("engine.dispatches")
+        with annotate("outer"):
+            time.sleep(0.01)
+            with annotate("inner"):
+                time.sleep(0.005)
+            with annotate("inner"):
+                pass
+        with annotate("alone"):
+            pass
+        count("engine.dispatches", 2)
+    names = [ev.name() for ev in prof.profiler.kineto_results.events()]
+    assert all(names.count(k) == n
+               for k, n in (("outer", 1), ("inner", 2), ("alone", 1)))
+    t = totals()
+    assert {k: v["count"] for k, v in t.items()} == {
+        "outer": 1, "inner": 2, "alone": 1}
+    assert t["outer"]["seconds"] >= 0.015
+    assert t["outer"]["self_seconds"] == pytest.approx(
+        t["outer"]["seconds"] - t["inner"]["seconds"], abs=1e-9)
+    assert t["inner"]["self_seconds"] == t["inner"]["seconds"]
+    assert counters() == {"engine.dispatches": 3}
+    with trace(str(tmp_path)):
+        with annotate("second"):
+            pass
+    assert set(totals()) == {"second"} and counters() == {}
 
 
 def test_device_memory_stats_asks_for_the_cpu_by_name(monkeypatch):
